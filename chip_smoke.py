@@ -2,19 +2,38 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``rtvqa_tpu_torch/csrc/``, checks each
-against its plain PyTorch version at the main path's shapes (128 synthetic
-1080p YUV420 frames; 127 half-resolution pyramid pairs), checks the suite
-against the repository's NumPy oracles on a small input, then drives the
-complexity main path (``calculate_average_scene_complexity``, the
-``quality_backend: "none"`` route of the CLI) once on the kernels and once on
-the plain versions, with the kernels' launch counts reset just before the
-kernel run. Any failure raises, so the exit code is non-zero; without a GPU
-it stops before printing any result.
+Builds the port's CUDA kernels from ``rtvqa_tpu_torch/csrc/`` and drives
+the two paths of the ``rtvqa-torch`` CLI that are ported, on synthetic
+1080p YUV420 frames (the card's machine has no libav, so the CLI itself
+cannot decode there):
+
+* complexity (``quality_backend: "none"``): the gray and block-match
+  kernels against their plain versions at the main path's shapes (128
+  frames; 127 half-resolution pyramid pairs), the suite against the
+  repository's NumPy oracles on a small input, then
+  ``calculate_average_scene_complexity`` once on the kernels and once on
+  the plain versions;
+* quality (``quality_backend: "native"``): the four quality kernels
+  against their plain versions at one 64-frame chunk (ref and a noisy
+  dis), the kernel chunk body against the NumPy oracles of PSNR, SSIM and
+  ADM on a small input, then the streaming chunk loop
+  (``metrics.full_reference._quality_chunk_loop`` + ``pool_full_reference``,
+  what ``analyze_full_reference`` runs after decoding) over 128 frames in
+  two chunks, once on the kernels and once on the plain versions.
+
+The kernels' launch counts are set to 0 just before each path's kernel run
+and read just after it; every kernel of the path must have launched. Any
+failure raises, so the exit code is non-zero; without a GPU it stops before
+printing any result.
 
 Output, one line per phase, then: the ``nvidia-smi`` name/power-limit line,
 one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX.
+{...}}``. ``bound_ms`` is the larger of the bytes a kernel's function must
+move over 3.35 TB/s and its operations over 67 TFLOP/s (the H100 SXM's f32
+rate outside the tensor cores; integer operations are counted at that rate
+too), computed from this run's shapes by the ``*_work`` functions below.
+No single PyTorch call computes any of these functions, so ``library_ms`` is
+null. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +55,23 @@ BLOCK, RADIUS = 16, 8          # the suite's defaults; the pyramid halves them
 GRAY_ATOL = 1e-3               # tests/test_pallas_kernels.py:96 (FMA ULPs)
 MOTION_RTOL = 5e-3             # docs/PARITY.md motion row (near-tie argmins)
 SUITE_RTOL = 1e-4
+NOISE = 4                      # dis = ref + uniform integers in [-NOISE, NOISE]
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM peaks: HBM3 bandwidth, dense FP32 rate
+F32_OPS_PER_S = 67e12
+# Quality tolerances: those of the JAX package's kernel tests
+# (tests/test_quality_pallas.py, test_vif_pallas.py, test_adm_pallas.py).
+SSE_RTOL = 1e-6
+SSIM_ATOL = 2e-6
+VIF0_RTOL = 2e-4
+SAD_RTOL = SAD_ATOL = 1e-5
+BLUR_ATOL = 1e-4
+PLANE_RTOL, PLANE_ATOL = 1e-4, 1e-3   # dec_* and a_* planes
+VIF_TAIL_RTOL = 3e-4
+ADM_RTOL = 2e-4
+ADM2_RTOL = 3e-4
+VMAF_RTOL = 3e-4               # pooled VMAF: the widest of its features' tolerances
+# Against the NumPy oracles: tests/test_quality.py (MSE, SSIM), test_vmaf.py (ADM).
+ORACLE_MSE_RTOL, ORACLE_SSIM_ATOL, ORACLE_ADM_RTOL = 1e-5, 1e-4, 5e-4
 
 
 def make_frames(n: int, h: int, w: int, seed: int):
@@ -72,6 +108,146 @@ def wall_s(fn):
     return out, time.perf_counter() - t0
 
 
+def peak_gib(fn) -> float:
+    """Peak device memory (GiB) allocated while ``fn()`` runs."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def profile_device(label: str, fn, top: int = 8) -> None:
+    """One run of ``fn`` under ``torch.profiler``: device self time by kernel
+    name (the ``top`` largest) and the device's busy share of the run's
+    wall time. Prints "not measured" if the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        print(f"profile {label}: device time not measured (the profiler recorded none)")
+        return
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"profile {label}: device self time {busy:.3f} ms of {wall_ms:.3f} ms wall "
+          f"(busy {busy / wall_ms:.1%}, under the profiler)")
+    for name, ms, count in rows[:top]:
+        print(f"  {ms:10.3f} ms  x{count:<5d} {name[:100]}")
+
+
+def record(name, source, replaces, err, ms, plain_ms, work) -> dict:
+    """One entry of the ``{"kernels": [...]}`` line; ``work`` = (bytes, ops)."""
+    nbytes, ops = work
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+# ----- Work of each kernel's function (bytes moved once, operations) --------
+# Operation counts per pixel follow the kernels' arithmetic (csrc/*.cu): a
+# K-tap filter output is K multiplies and K-1 adds; the VIF statistics are
+# the five moment filters, vertical and horizontal, plus 3 products and ~30
+# operations of clamps, ratios and log2 per pixel; the SSE is 3 and the SSIM
+# block and window sums ~10 integer operations per pixel and plane; the ADM
+# per-subband-pixel work (decoupling, CSF, 3x3 mask, six cubes and sums) is
+# 86 operations.
+
+
+def _taps_ops(k: int) -> int:
+    return 2 * k - 1
+
+
+def _vif_stats_ops(k: int) -> int:
+    return 3 + 10 * _taps_ops(k) + 30
+
+
+def _filter_dec_ops(k: int, h: int, w: int) -> int:
+    """Two images, vertical pass at the even rows, horizontal at the even columns."""
+    h2, w2 = (h + 1) // 2, (w + 1) // 2
+    return 2 * _taps_ops(k) * (h2 * w + h2 * w2)
+
+
+def _adm_scale_ops(h: int, w: int) -> int:
+    h2, w2 = (h + 1) // 2, (w + 1) // 2
+    return 2 * 2 * _taps_ops(4) * h2 * w + (2 * 4 * _taps_ops(4) + 86) * h2 * w2
+
+
+def gray_work(b, h, w, hc, wc):
+    return b * h * w * (1 + 4) + 2 * b * hc * wc, 23 * b * h * w
+
+
+def motion_work(pairs, h, w, block, radius):
+    nblocks = pairs * (h // block) * (w // block)
+    return 2 * 4 * pairs * h * w + 4 * pairs, 3 * nblocks * block * block * (2 * radius + 1) ** 2
+
+
+def quality_work(b, h, w, hc, wc):
+    h2, w2 = (h + 1) // 2, (w + 1) // 2
+    nbytes = 2 * b * h * w + 4 * b * hc * wc + 2 * 4 * h * w + 2 * 4 * b * h2 * w2 + 9 * 4 * b
+    per_luma = 13 + (2 * _taps_ops(5) + 3) + _vif_stats_ops(17)
+    ops = b * (per_luma * h * w + _filter_dec_ops(9, h, w) + 2 * 13 * hc * wc)
+    return nbytes, ops
+
+
+def vif_tail_work(b, h1, w1):
+    h2, w2 = (h1 + 1) // 2, (w1 + 1) // 2
+    h3, w3 = (h2 + 1) // 2, (w2 + 1) // 2
+    ops = b * (_vif_stats_ops(9) * h1 * w1 + _filter_dec_ops(5, h1, w1)
+               + _vif_stats_ops(5) * h2 * w2 + _filter_dec_ops(3, h2, w2) + _vif_stats_ops(3) * h3 * w3)
+    return 2 * 4 * b * h1 * w1 + 3 * 4 * b, ops
+
+
+def adm_scale0_work(b, h, w):
+    h2, w2 = (h + 1) // 2, (w + 1) // 2
+    return 2 * b * h * w + 2 * 4 * b * h2 * w2 + 2 * 4 * b, b * _adm_scale_ops(h, w)
+
+
+def adm_tail_work(b, h1, w1):
+    ops, h, w = 0, h1, w1
+    for _ in range(3):
+        ops += _adm_scale_ops(h, w)
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return 2 * 4 * b * h1 * w1 + 2 * 4 * b, b * ops
+
+
+def max_rel(got, want) -> float:
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
+
+
+def max_abs(got, want) -> float:
+    return float((got.double() - want.double()).abs().max())
+
+
+def check_close(label, got, want, rtol=0.0, atol=0.0) -> None:
+    """|got - want| <= atol + rtol * |want| everywhere, and got finite."""
+    g, w = got.double(), want.double()
+    bad = ~torch.isfinite(g) | ((g - w).abs() > atol + rtol * w.abs())
+    if bool(bad.any()):
+        raise AssertionError(f"{label}: kernel vs plain beyond rtol {rtol} / atol {atol}: "
+                             f"max abs {max_abs(got, want):.3g}, max rel {max_rel(got, want):.3g}")
+
+
+def distort(planes, seed: int):
+    """dis = ref + uniform integer noise in [-NOISE, NOISE], clipped, per plane."""
+    rng = np.random.default_rng(seed)
+    return tuple(
+        np.clip(a.astype(np.int16) + rng.integers(-NOISE, NOISE + 1, a.shape, dtype=np.int16),
+                0, 255).astype(np.uint8)
+        for a in planes
+    )
+
+
 def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         raise SystemExit("FAIL device: torch.cuda.is_available() is False")
@@ -105,9 +281,9 @@ def phase_gray(dev, y, u, v) -> dict:
     ms = cuda_ms(lambda: yuv420_to_gray_cuda(y, u, v), 20)
     plain_ms = cuda_ms(lambda: yuv420_to_gray(y, u, v), 5)
     print(f"gray: {tuple(y.shape)} max_abs_err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"name": "yuv420_to_gray", "route": "cuda", "source": "rtvqa_tpu_torch/csrc/gray.cu",
-            "replaces": "rtvqa_tpu/kernels/gray_pallas.py:116", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms}
+    return record("yuv420_to_gray", "rtvqa_tpu_torch/csrc/gray.cu",
+                  "rtvqa_tpu/kernels/gray_pallas.py:116", err, ms, plain_ms,
+                  gray_work(*y.shape, *u.shape[-2:]))
 
 
 def phase_motion(dev, gray) -> dict:
@@ -141,20 +317,25 @@ def phase_motion(dev, gray) -> dict:
     print(f"motion: {tuple(prev.shape)} pairs, block {bp} r {rp}: max_abs_err {err:.3g} "
           f"(rel {rel:.3g}); integer pair exact ({float(k_int[0]):.6f}), static 0; "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"name": "block_match_motion", "route": "cuda",
-            "source": "rtvqa_tpu_torch/csrc/motion.cu",
-            "replaces": "rtvqa_tpu/kernels/motion_pallas.py:228", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms}
+    return record("block_match_motion", "rtvqa_tpu_torch/csrc/motion.cu",
+                  "rtvqa_tpu/kernels/motion_pallas.py:228", err, ms, plain_ms,
+                  motion_work(*prev.shape, bp, rp))
+
+
+def load_oracle(name: str):
+    """tests/oracles/<name>.py, loaded by path without importing the tests package."""
+    spec = importlib.util.spec_from_file_location(
+        f"rtvqa_{name}_oracle", os.path.join(ROOT, "tests", "oracles", f"{name}.py")
+    )
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    return oracle
 
 
 def phase_oracle(dev) -> None:
     """Small-input agreement with the repository's NumPy oracles
     (tests/oracles/complexity.py), through the kernel path on the card."""
-    spec = importlib.util.spec_from_file_location(
-        "rtvqa_complexity_oracle", os.path.join(ROOT, "tests", "oracles", "complexity.py")
-    )
-    oracle = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(oracle)
+    oracle = load_oracle("complexity")
 
     from rtvqa_tpu_torch.kernels.motion import block_match_motion_cuda
     from rtvqa_tpu_torch.ops.dct import dct_energy, temporal_dct_abs_diff
@@ -179,7 +360,7 @@ def phase_oracle(dev) -> None:
 
 
 def phase_suite(dev, y, u, v) -> dict:
-    from rtvqa_tpu.io.video import DecodedClip
+    from rtvqa_tpu_torch.io.video import DecodedClip
     from rtvqa_tpu_torch.kernels.gray import yuv420_to_gray_cuda
     from rtvqa_tpu_torch.kernels.motion import block_match_motion_cuda
     from rtvqa_tpu_torch.metrics.complexity import (
@@ -212,6 +393,213 @@ def phase_suite(dev, y, u, v) -> dict:
             raise AssertionError(f"{name} was not launched on the suite's kernel run")
     print(f"suite: {N}x{H}x{W} kernel path {t_k:.4f} s, plain path {t_p:.4f} s; "
           f"launches {launches}; values {res_k}")
+    profile_device("suite, kernel path", lambda: run(None))
+    return launches
+
+
+def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
+    """The four quality kernels against their plain versions on one chunk."""
+    from rtvqa_tpu_torch.kernels.adm import (
+        adm_scale_cuda,
+        adm_scale_plain,
+        adm_tail_cuda,
+        adm_tail_plain,
+    )
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda, quality_fused_plain
+    from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda, vif_tail_plain
+    from rtvqa_tpu_torch.vmaf.filters import filter1d_sep
+    from rtvqa_tpu_torch.vmaf.motion import FILTER_5
+
+    ry, ru, rv = (torch.from_numpy(a).to(dev) for a in ref_np)
+    dy, du, dv = (torch.from_numpy(a).to(dev) for a in dis_np)
+    b, h, w = ry.shape
+    hc, wc = ru.shape[-2:]
+    # A carry as the loop would hand it over: the blur of a ref frame.
+    prev_blur = filter1d_sep(ry[-1:].float(), FILTER_5)[0].contiguous()
+    args = (ry, ru, rv, dy, du, dv, prev_blur)
+    records = []
+
+    # Kernel 3: the per-frame pass.
+    got, want = quality_fused_cuda(*args), quality_fused_plain(*args)
+    torch.cuda.synchronize()
+    n_win = {"y": (h // 4 - 1) * (w // 4 - 1), "u": (hc // 4 - 1) * (wc // 4 - 1)}
+    n_win["v"] = n_win["u"]
+    errs = {}
+    for p, n_pix in (("y", h * w), ("u", hc * wc), ("v", hc * wc)):
+        check_close(f"sse_{p}", got[f"sse_{p}"], want[f"sse_{p}"], rtol=SSE_RTOL)
+        errs[f"mse_{p}"] = max_abs(got[f"sse_{p}"] / n_pix, want[f"sse_{p}"] / n_pix)
+        gs, ws = got[f"ssim_{p}_sum"] / n_win[p], want[f"ssim_{p}_sum"] / n_win[p]
+        check_close(f"ssim_{p} mean", gs, ws, atol=SSIM_ATOL)
+        errs[f"ssim_{p}"] = max_abs(gs, ws)
+    check_close("vif_scale0", got["vif_scale0"], want["vif_scale0"], rtol=VIF0_RTOL)
+    check_close("sad_sum", got["sad_sum"], want["sad_sum"], rtol=SAD_RTOL, atol=SAD_ATOL)
+    check_close("blur_carry", got["blur_carry"], want["blur_carry"], atol=BLUR_ATOL)
+    for key in ("dec_ref", "dec_dis"):
+        check_close(key, got[key], want[key], rtol=PLANE_RTOL, atol=PLANE_ATOL)
+    errs["sad_mean"] = max_abs(got["sad_sum"] / (h * w), want["sad_sum"] / (h * w))
+    for key in ("vif_scale0", "blur_carry", "dec_ref", "dec_dis"):
+        errs[key] = max_abs(got[key], want[key])
+    ms = cuda_ms(lambda: quality_fused_cuda(*args), 10)
+    plain_ms = cuda_ms(lambda: quality_fused_plain(*args), 2)
+    mem = (peak_gib(lambda: quality_fused_cuda(*args)), peak_gib(lambda: quality_fused_plain(*args)))
+    print(f"quality_fused: {tuple(ry.shape)} max abs errs {json.dumps(errs)} "
+          f"(vif_scale0 rel {max_rel(got['vif_scale0'], want['vif_scale0']):.3g}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; peak {mem[0]:.2f} vs {mem[1]:.2f} GiB")
+    records.append(record("quality_fused", "rtvqa_tpu_torch/csrc/quality.cu",
+                          "rtvqa_tpu/kernels/quality_pallas.py:635", max(errs.values()), ms,
+                          plain_ms, quality_work(b, h, w, hc, wc)))
+
+    # Kernel 5: VIF scales 1-3 on the kernel's scale-1 pair.
+    dec = (got["dec_ref"], got["dec_dis"])
+    vk, vp = vif_tail_cuda(*dec), vif_tail_plain(*dec)
+    torch.cuda.synchronize()
+    for key in vp:
+        check_close(key, vk[key], vp[key], rtol=VIF_TAIL_RTOL)
+    rels = {key: max_rel(vk[key], vp[key]) for key in vp}
+    err = max(max_abs(vk[key], vp[key]) for key in vp)
+    ms = cuda_ms(lambda: vif_tail_cuda(*dec), 10)
+    plain_ms = cuda_ms(lambda: vif_tail_plain(*dec), 2)
+    mem = (peak_gib(lambda: vif_tail_cuda(*dec)), peak_gib(lambda: vif_tail_plain(*dec)))
+    print(f"vif_tail: {tuple(dec[0].shape)} max abs err {err:.3g}, rel {json.dumps(rels)}; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; peak {mem[0]:.2f} vs {mem[1]:.2f} GiB")
+    records.append(record("vif_tail", "rtvqa_tpu_torch/csrc/vif.cu",
+                          "rtvqa_tpu/kernels/vif_pallas.py:874", err, ms, plain_ms,
+                          vif_tail_work(*dec[0].shape)))
+    del dec, vk, vp, got, want
+
+    # Kernel 6: ADM scale 0 on the u8 luma pair.
+    num, den, a_ref, a_dis = adm_scale_cuda(ry, dy, 0)
+    pn, pd, pa_ref, pa_dis = adm_scale_plain(ry, dy, 0)
+    torch.cuda.synchronize()
+    check_close("adm scale 0 num", num, pn, rtol=ADM_RTOL)
+    check_close("adm scale 0 den", den, pd, rtol=ADM_RTOL)
+    check_close("a_ref", a_ref, pa_ref, rtol=PLANE_RTOL, atol=PLANE_ATOL)
+    check_close("a_dis", a_dis, pa_dis, rtol=PLANE_RTOL, atol=PLANE_ATOL)
+    err = max(max_abs(x, y) for x, y in ((num, pn), (den, pd), (a_ref, pa_ref), (a_dis, pa_dis)))
+    ms = cuda_ms(lambda: adm_scale_cuda(ry, dy, 0), 10)
+    plain_ms = cuda_ms(lambda: adm_scale_plain(ry, dy, 0), 2)
+    mem = (peak_gib(lambda: adm_scale_cuda(ry, dy, 0)), peak_gib(lambda: adm_scale_plain(ry, dy, 0)))
+    print(f"adm_scale0: {tuple(ry.shape)} max abs err {err:.3g} (num rel {max_rel(num, pn):.3g}, "
+          f"den rel {max_rel(den, pd):.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+          f"peak {mem[0]:.2f} vs {mem[1]:.2f} GiB")
+    records.append(record("adm_scale0", "rtvqa_tpu_torch/csrc/adm.cu",
+                          "rtvqa_tpu/kernels/adm_pallas.py:499", err, ms, plain_ms,
+                          adm_scale0_work(b, h, w)))
+    del pa_ref, pa_dis
+
+    # Kernel 7: ADM scales 1-3 on the kernel's approximation bands.
+    tk, tp = adm_tail_cuda(a_ref, a_dis), adm_tail_plain(a_ref, a_dis)
+    torch.cuda.synchronize()
+    check_close("adm tail num", tk["num"], tp["num"], rtol=ADM_RTOL)
+    check_close("adm tail den", tk["den"], tp["den"], rtol=ADM_RTOL)
+    adm2_k = (num + tk["num"]) / (den + tk["den"])
+    adm2_p = (pn + tp["num"]) / (pd + tp["den"])
+    check_close("adm2", adm2_k, adm2_p, rtol=ADM2_RTOL)
+    err = max(max_abs(tk[k], tp[k]) for k in ("num", "den"))
+    ms = cuda_ms(lambda: adm_tail_cuda(a_ref, a_dis), 10)
+    plain_ms = cuda_ms(lambda: adm_tail_plain(a_ref, a_dis), 2)
+    mem = (peak_gib(lambda: adm_tail_cuda(a_ref, a_dis)), peak_gib(lambda: adm_tail_plain(a_ref, a_dis)))
+    print(f"adm_tail: {tuple(a_ref.shape)} max abs err {err:.3g} (adm2 rel {max_rel(adm2_k, adm2_p):.3g}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; peak {mem[0]:.2f} vs {mem[1]:.2f} GiB")
+    records.append(record("adm_tail", "rtvqa_tpu_torch/csrc/adm.cu",
+                          "rtvqa_tpu/kernels/adm_pallas.py:886", err, ms, plain_ms,
+                          adm_tail_work(*a_ref.shape)))
+    return records
+
+
+def phase_quality_oracle(dev) -> None:
+    """The kernel chunk body on a small input against the repository's
+    NumPy oracles (tests/oracles/quality.py, tests/oracles/adm.py)."""
+    q_oracle, adm_oracle = (load_oracle(name) for name in ("quality", "adm"))
+    from rtvqa_tpu_torch.metrics.full_reference import CHUNK_KEYS, chunk_kernels
+
+    rng = np.random.default_rng(SEED + 4)
+    b, h, w = 2, 64, 96
+    ref = make_frames(b, h, w, SEED + 5)
+    dis = distort(ref, SEED + 6)
+    planes = [torch.from_numpy(a).to(dev) for a in (*ref, *dis)]
+    prev_blur = torch.from_numpy((rng.random((h, w)) * 255).astype(np.float32)).to(dev)
+    packed, _ = chunk_kernels(*planes, prev_blur, True)
+    got = dict(zip(CHUNK_KEYS, packed.double().cpu().numpy()))
+    worst = {}
+    for i in range(b):
+        r_pl, d_pl = [a[i] for a in ref], [a[i] for a in dis]
+        want = {**q_oracle.psnr_frame(r_pl, d_pl), **q_oracle.ssim_frame(r_pl, d_pl),
+                "adm2": adm_oracle.adm2(ref[0][i], dis[0][i])}
+        for key, wv in want.items():
+            tol = ORACLE_ADM_RTOL if key == "adm2" else (ORACLE_MSE_RTOL if key.startswith("mse") else 0.0)
+            atol = ORACLE_SSIM_ATOL if key.startswith("ssim") else 0.0
+            gv = float(got[key][i])
+            if not abs(gv - wv) <= atol + tol * abs(wv):
+                raise AssertionError(f"quality oracle {key}[{i}]: kernels {gv} vs NumPy {wv}")
+            worst[key] = max(worst.get(key, 0.0), abs(gv - wv))
+    print("quality oracle: " + ", ".join(f"{k} max abs {v:.3g}" for k, v in worst.items()))
+
+
+def phase_quality(dev, ref_np, dis_np) -> dict:
+    """The streaming chunk loop over N frames on the kernels, then on the
+    plain versions; pooled with the builtin VMAF model."""
+    from rtvqa_tpu_torch.io.stream import FrameBatch, prefetch, stage_to_device
+    from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
+    from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda
+    from rtvqa_tpu_torch.metrics.full_reference import (
+        CHUNK_KEYS,
+        _quality_chunk_loop,
+        auto_chunk,
+        pool_full_reference,
+    )
+
+    chunk = auto_chunk(W, H)
+    ts = np.arange(N) * 1000.0 / 30.0
+
+    def batches(planes):
+        for s in range(0, N, chunk):
+            yield FrameBatch(*(a[s:s + chunk] for a in planes), ts[s:s + chunk], s)
+
+    def run(impl):
+        ref_it = prefetch(stage_to_device(batches(ref_np), chunk, dev), depth=1)
+        dis_it = prefetch(stage_to_device(batches(dis_np), chunk, dev), depth=1)
+        try:
+            series, n = _quality_chunk_loop(ref_it, dis_it, chunk, None, None, dev, impl)
+        finally:
+            ref_it.close()
+            dis_it.close()
+        return series, pool_full_reference(series, n)
+
+    run("kernel"), run("plain")  # warm-up: pinned host buffers, allocator pools
+    kernels = (quality_fused_cuda, vif_tail_cuda, adm_scale_cuda, adm_tail_cuda)
+    for k in kernels:
+        k.launches = 0
+    (s_k, pool_k), t_k = wall_s(lambda: run("kernel"))
+    launches = {k.__name__: k.launches for k in kernels}
+    (s_p, pool_p), t_p = wall_s(lambda: run("plain"))
+    if pool_k["n_frames"] != N or pool_p["n_frames"] != N:
+        raise AssertionError(f"quality loop saw {pool_k['n_frames']} / {pool_p['n_frames']} frames, not {N}")
+    tols = {"motion_sad": (SAD_RTOL, SAD_ATOL), "vif_scale0": (VIF0_RTOL, 0.0), "adm2": (ADM2_RTOL, 0.0)}
+    for key in CHUNK_KEYS:
+        if key.startswith("vif_scale") and key != "vif_scale0":
+            rtol, atol = VIF_TAIL_RTOL, 0.0
+        elif key.startswith("ssim"):
+            rtol, atol = 0.0, SSIM_ATOL
+        else:
+            rtol, atol = tols.get(key, (SSE_RTOL, 0.0))
+        a, b = s_k[key], s_p[key]
+        if a.shape != (N,) or not np.isfinite(a).all():
+            raise AssertionError(f"quality series {key}: shape {a.shape}, finite {np.isfinite(a).all()}")
+        check_close(f"quality series {key}", torch.from_numpy(a), torch.from_numpy(b), rtol, atol)
+    for key, rtol, atol in (("psnr", SSE_RTOL, 0.0), ("ssim", 0.0, SSIM_ATOL), ("vmaf", VMAF_RTOL, 0.0)):
+        a, b = pool_k[key], pool_p[key]
+        if not (np.isfinite(a) and abs(a - b) <= atol + rtol * abs(b)):
+            raise AssertionError(f"pooled {key}: kernel path {a} vs plain {b}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched on the quality kernel run")
+    print(f"quality: {N}x{H}x{W} in {N // chunk} chunks of {chunk}: kernel path {t_k:.4f} s, "
+          f"plain path {t_p:.4f} s; launches {launches}; psnr {pool_k['psnr']:.6f} "
+          f"ssim {pool_k['ssim']:.6f} vmaf {pool_k['vmaf']:.6f} (plain {pool_p['psnr']:.6f} "
+          f"{pool_p['ssim']:.6f} {pool_p['vmaf']:.6f})")
+    profile_device("quality, kernel path", lambda: run("kernel"), top=12)
     return launches
 
 
@@ -237,8 +625,21 @@ def main() -> int:
     launches = phase_suite(dev, y_np, u_np, v_np)
     gray_rec["launches"] = launches["yuv420_to_gray_cuda"]
     motion_rec["launches"] = launches["block_match_motion_cuda"]
+
+    from rtvqa_tpu_torch.metrics.full_reference import auto_chunk
+
+    ref_np = (y_np, u_np, v_np)
+    dis_np = distort(ref_np, SEED + 3)
+    first = slice(0, auto_chunk(W, H))
+    quality_recs = phase_quality_kernels(dev, [a[first] for a in ref_np], [a[first] for a in dis_np])
+    torch.cuda.empty_cache()
+    phase_quality_oracle(dev)
+    launches = phase_quality(dev, ref_np, dis_np)
+    for rec, wrapper in zip(quality_recs, ("quality_fused_cuda", "vif_tail_cuda",
+                                           "adm_scale_cuda", "adm_tail_cuda")):
+        rec["launches"] = launches[wrapper]
     print(smi)
-    print(json.dumps({"kernels": [gray_rec, motion_rec]}))
+    print(json.dumps({"kernels": [gray_rec, motion_rec, *quality_recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

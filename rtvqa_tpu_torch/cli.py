@@ -3,9 +3,10 @@
     python -m rtvqa_tpu_torch.cli <config.json> <input_video> [--json]
     rtvqa-torch <config.json> <input_video> [--json]
 
-Runs on the GPU when one is present, else on the CPU. Single-clip mode only:
-``--sweep``, ``--sharded`` and ``--trace`` are accepted for parity with the
-JAX CLI and refused, as they are not ported yet.
+Runs on the card (``--device cuda``, the default; it raises without one);
+``--device cpu`` runs the plain PyTorch ops on the CPU. Single-clip mode
+only: ``--sweep``, ``--sharded`` and ``--trace`` are accepted for parity with
+the JAX CLI and refused, as they are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,9 +15,9 @@ import argparse
 import json
 import sys
 
-from rtvqa_tpu.config import load_config
-from rtvqa_tpu.obs.logging import get_logger, setup_logging, stop_logging
-from rtvqa_tpu.obs.profiler import StageTimer
+from rtvqa_tpu_torch.config import load_config
+from rtvqa_tpu_torch.obs.logging import get_logger, setup_logging, stop_logging
+from rtvqa_tpu_torch.obs.profiler import StageTimer
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -31,6 +32,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="Device-parallel sweep driver (not ported yet).")
     parser.add_argument("--trace", type=str, default=None, metavar="DIR",
                         help="Device trace of the run (not ported yet).")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="Where the metrics run (default: cuda; cpu only when asked).")
     parser.add_argument("--json", action="store_true",
                         help="Emit one JSON line with the metrics row and the stage profile.")
     args = parser.parse_args(argv)
@@ -40,13 +43,15 @@ def main(argv: list[str] | None = None) -> int:
             raise NotImplementedError(f"{flag} is not ported to rtvqa_tpu_torch yet")
 
     setup_logging()
-    logger = get_logger("rtvqa_tpu.torch.cli")
+    logger = get_logger("rtvqa_tpu_torch.cli")
     config = load_config(args.config_file)
     timer = StageTimer()
     try:
         from rtvqa_tpu_torch.pipeline.analyzer import process_video_and_extract_metrics
 
-        result = process_video_and_extract_metrics(args.input_video, config, timer=timer)
+        result = process_video_and_extract_metrics(
+            args.input_video, config, timer=timer, device=args.device
+        )
         timer.log_summary()
         if args.json:
             print(json.dumps({"metrics": result, "profile": timer.summary()}, default=float))

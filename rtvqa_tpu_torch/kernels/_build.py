@@ -3,8 +3,9 @@ wrapper shares.
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` into one shared library with a
 plain C interface under ``build/rtvqa_tpu_torch/`` at the checkout root, and
-loaded with ``ctypes`` on first use. The library name carries a hash of the
-sources, so an edited source never loads a stale build. The build depends
+loaded with ``ctypes`` on first use. The sources are compiled in parallel,
+one ``nvcc -c`` each, then linked. The library name carries a hash of the
+sources and headers, so an edited source never loads a stale build. The build depends
 only on the sources in the repository; a missing ``nvcc`` or a failed build
 raises — there is no fallback to the plain PyTorch versions here.
 """
@@ -27,7 +28,7 @@ SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "rtvqa_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # Where a toolkit is looked for when neither CUDA_HOME nor PATH names one.
 _NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)
@@ -57,9 +58,13 @@ def _sources() -> list[Path]:
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cuh"))
+
+
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -68,8 +73,9 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernel library if it is not built yet; returns its path.
-    The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills) is kept in ``nvcc.log`` beside it."""
+    Each source compiles in its own ``nvcc -c``, all started together, then
+    one ``nvcc -shared`` links them. The compilers' output (``-Xptxas -v``:
+    registers, shared memory, spills) is kept in ``nvcc.log`` beside it."""
     out = library_path()
     if out.is_file():
         return out
@@ -80,17 +86,29 @@ def build() -> Path:
             "kernels of rtvqa_tpu_torch cannot be built"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())],
-        capture_output=True, text=True,
-    )
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in _sources()]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(_sources(), objs)
+        ]
+        logs = [(p.args[-1], p.communicate()[0], p.returncode) for p in procs]
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(Path(work) / out.name), *map(str, objs)]
+        if all(rc == 0 for _, _, rc in logs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append(("link", proc.stdout + proc.stderr, proc.returncode))
+        (BUILD_DIR / "nvcc.log").write_text(
+            "".join(f"== {name} (exit {rc})\n{text}" for name, text, rc in logs)
+        )
+        failed = [(name, text, rc) for name, text, rc in logs if rc != 0]
+        if failed:
+            name, text, rc = failed[0]
+            raise KernelBuildError(f"nvcc failed on {name} ({rc}):\n{text[-4000:]}")
+        os.replace(Path(work) / out.name, out)
     return out
 
 
@@ -109,6 +127,23 @@ def load_library() -> ctypes.CDLL:
         lib.rtvqa_yuv420_to_gray.restype = i32
         lib.rtvqa_block_match_motion.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         lib.rtvqa_block_match_motion.restype = i32
+        f32, i64 = ctypes.c_float, ctypes.c_longlong
+        lib.rtvqa_quality_scratch.argtypes = [i32] * 5
+        lib.rtvqa_quality_scratch.restype = i64
+        lib.rtvqa_quality_fused.argtypes = (
+            [ptr] * 7 + [i32] * 5 + [ptr] * 3 + [f32, i32] + [ptr] * 6)
+        lib.rtvqa_quality_fused.restype = i32
+        lib.rtvqa_vif_tail_scratch_floats.argtypes = [i32] * 3
+        lib.rtvqa_vif_tail_scratch_floats.restype = i64
+        lib.rtvqa_vif_tail_scratch_doubles.argtypes = [i32] * 3
+        lib.rtvqa_vif_tail_scratch_doubles.restype = i64
+        lib.rtvqa_vif_tail.argtypes = [ptr, ptr] + [i32] * 3 + [ptr] * 3 + [f32, i32] + [ptr] * 4
+        lib.rtvqa_vif_tail.restype = i32
+        lib.rtvqa_adm_scratch.argtypes = [i32] * 3
+        lib.rtvqa_adm_scratch.restype = i64
+        lib.rtvqa_adm_scale.argtypes = (
+            [ptr, ptr] + [i32] * 4 + [ptr] + [f32] * 4 + [i32, i32, f32, i32] + [ptr] * 5)
+        lib.rtvqa_adm_scale.restype = i32
         _lib = lib
         return lib
 
@@ -120,11 +155,12 @@ def check_launch(lib: ctypes.CDLL, code: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
 
 
-def require_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and rank."""
+def require_cuda(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (or one
+    of a tuple of dtypes) and rank."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")

@@ -223,8 +223,8 @@ def calculate_average_scene_complexity(
     device: str | torch.device | None = None,
 ) -> ComplexityResult:
     """Pad a ``DecodedClip`` to the frame bucket, move it to ``device``
-    (default: the card when there is one), run the suite, and return the
-    reference-ordered result."""
+    (default: the card), run the suite, and return the reference-ordered
+    result."""
     dev = get_device(device)
     if motion_impl is None:
         motion_impl = "kernel" if dev.type == "cuda" else "plain"

@@ -1,0 +1,247 @@
+"""Streaming full-reference engine: PSNR + SSIM + VMAF features in one pass
+(counterpart of ``rtvqa_tpu/metrics/full_reference.py``).
+
+Both videos stream through the native decoder in lockstep chunks of
+``auto_chunk`` frames (a background thread decodes and uploads the next
+chunk while the device computes). Per chunk one body computes every
+per-frame series of ``CHUNK_KEYS``:
+
+* ``chunk_plain`` — plain PyTorch ops: PSNR/SSIM (``metrics.quality``), the
+  FILTER_5 motion SADs, VIF scales 0-3 and ADM (``vmaf``); the counterpart
+  of the JAX package's ``_program_a`` + ``_program_b``;
+* ``chunk_kernels`` — the four CUDA kernels (``kernels.quality``,
+  ``kernels.vif``, ``kernels.adm``); the counterpart of ``_chunk_fused_tpu``.
+
+A ragged last chunk is padded by repeating its last frame; the blurred last
+ref frame carries across chunks, and frame 0's SAD is masked. Per-frame
+series return to the host; pooling (mean MSE -> PSNR, mean SSIM, the
+motion2 min rule, per-frame SVR -> mean VMAF) happens at the end.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from rtvqa_tpu_torch.device import get_device
+from rtvqa_tpu_torch.io.stream import VideoStream, prefetch, stage_to_device, upload
+from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
+from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
+from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda
+from rtvqa_tpu_torch.metrics.quality import (
+    pooled_psnr,
+    psnr_frames,
+    psnr_from_sse,
+    ssim_all,
+    ssim_frames,
+)
+from rtvqa_tpu_torch.obs.logging import get_logger
+from rtvqa_tpu_torch.vmaf.adm import adm_features, adm_finalize
+from rtvqa_tpu_torch.vmaf.filters import filter1d_sep
+from rtvqa_tpu_torch.vmaf.model import builtin_model, load_model
+from rtvqa_tpu_torch.vmaf.motion import FILTER_5
+from rtvqa_tpu_torch.vmaf.vif import vif_features
+
+logger = get_logger("rtvqa_tpu_torch.full_reference")
+
+A_KEYS = (
+    "mse_y", "mse_u", "mse_v", "mse_avg", "psnr_y", "psnr_avg",
+    "ssim_y", "ssim_u", "ssim_v", "ssim_all", "motion_sad",
+)
+B_KEYS = ("vif_scale0", "vif_scale1", "vif_scale2", "vif_scale3", "adm2")
+CHUNK_KEYS = A_KEYS + B_KEYS
+MAX_KERNEL_WIDTH = 3840
+
+
+def resolve_precision(quality_precision: Optional[str]) -> None:
+    """Check the config's ``quality_precision``: "auto" (or None) and
+    "exact" run exact f32; "fast" (the JAX package's reduced-precision
+    filter mode) is not ported."""
+    if quality_precision in (None, "auto", "exact"):
+        return None
+    if quality_precision == "fast":
+        raise NotImplementedError(
+            "quality_precision 'fast' is not ported to rtvqa_tpu_torch: its "
+            "reduced-precision filters were a TPU workaround (ROADMAP.md queue A, item 7)"
+        )
+    raise ValueError(
+        f"quality_precision must be 'auto', 'exact' or 'fast', got {quality_precision!r}"
+    )
+
+
+def _mask_first(sad: torch.Tensor, has_prev: bool) -> torch.Tensor:
+    if not has_prev:
+        sad = sad.clone()
+        sad[0] = 0.0
+    return sad
+
+
+def chunk_plain(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=None, adm_egl=None):
+    """One lockstep chunk on plain ops. Returns (packed (len(CHUNK_KEYS), N)
+    f32, blur carry (H, W))."""
+    out = {}
+    out.update(psnr_frames(ry, ru, rv, dy, du, dv))
+    out.update(ssim_frames(ry, ru, rv, dy, du, dv))
+    blur = filter1d_sep(ry.float(), FILTER_5)
+    prev = torch.cat([prev_blur[None], blur[:-1]], dim=0)
+    out["motion_sad"] = _mask_first((blur - prev).abs().mean(dim=(-2, -1)), has_prev)
+    ryf, dyf = ry.float(), dy.float()
+    out.update(vif_features(ryf, dyf, enhn_gain_limit=vif_egl))
+    out.update(adm_features(ryf, dyf, enhn_gain_limit=adm_egl))
+    return torch.stack([out[k].float() for k in CHUNK_KEYS]), blur[-1]
+
+
+def chunk_kernels(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=None, adm_egl=None):
+    """One lockstep chunk on the four kernels (their plain versions for CPU
+    tensors). Returns (packed (len(CHUNK_KEYS), N) f32, blur carry (H, W))."""
+    h, w = ry.shape[-2:]
+    if w > MAX_KERNEL_WIDTH:
+        raise NotImplementedError(
+            f"frames wider than {MAX_KERNEL_WIDTH} take the per-scale VIF/ADM chain "
+            "(kernel 4 and the ADM scale chain), not ported yet: ROADMAP.md queue B, rows 4 and 6"
+        )
+    fq = quality_fused_cuda(ry, ru, rv, dy, du, dv, prev_blur, egl=vif_egl)
+    h2, w2 = ru.shape[-2:]
+    n_y, n_c = h * w, h2 * w2
+    out = psnr_from_sse(fq["sse_y"], fq["sse_u"], fq["sse_v"], n_y, n_c)
+    out["ssim_y"] = fq["ssim_y_sum"] / ((h // 4 - 1) * (w // 4 - 1))
+    out["ssim_u"] = fq["ssim_u_sum"] / ((h2 // 4 - 1) * (w2 // 4 - 1))
+    out["ssim_v"] = fq["ssim_v_sum"] / ((h2 // 4 - 1) * (w2 // 4 - 1))
+    out["ssim_all"] = ssim_all(out["ssim_y"], out["ssim_u"], out["ssim_v"], n_y, n_c)
+    out["motion_sad"] = _mask_first(fq["sad_sum"] / n_y, has_prev)
+    out["vif_scale0"] = fq["vif_scale0"]
+    out.update(vif_tail_cuda(fq["dec_ref"], fq["dec_dis"], egl=vif_egl))
+    num, den, a_ref, a_dis = adm_scale_cuda(ry, dy, 0, egl=adm_egl)
+    tail = adm_tail_cuda(a_ref, a_dis, egl=adm_egl)
+    out["adm2"] = adm_finalize(num + tail["num"], den + tail["den"], ry.shape)
+    return torch.stack([out[k].float() for k in CHUNK_KEYS]), fq["blur_carry"]
+
+
+def auto_chunk(width: int, height: int, requested: Optional[int] = None) -> int:
+    """Frames per chunk, scaled to resolution: 64 at 1080p, at most 128,
+    even, at least 2."""
+    budget = max(2, int(64 * (1080 * 1920) / max(width * height, 1)))
+    budget = min(budget, 128)
+    chunk = min(requested or budget, budget)
+    return max(2, (chunk // 2) * 2)
+
+
+def _quality_chunk_loop(ref_it, dis_it, chunk: int, vif_egl, adm_egl, device, impl: str):
+    """Consume lockstep (ref, dis) ``StagedFrameBatch`` iterators; returns
+    (per-frame series keyed by ``CHUNK_KEYS``, n_frames). ``impl``:
+    "kernel" (``chunk_kernels``) or "plain" (``chunk_plain``)."""
+    body = chunk_kernels if impl == "kernel" else chunk_plain
+    series: dict[str, list[np.ndarray]] = {k: [] for k in CHUNK_KEYS}
+    carry_blur = None
+    first = True
+    n_frames = 0
+    while True:
+        rb = next(ref_it, None)
+        db = next(dis_it, None)
+        if rb is None or db is None:
+            break
+        rhost, dhost = rb.host, db.host
+        n = min(rhost.y.shape[0], dhost.y.shape[0])
+        if n == 0:
+            break
+        pad = chunk - n
+        if pad == 0 and rb.y is not None and db.y is not None:
+            planes = (rb.y, rb.u, rb.v, db.y, db.u, db.v)
+        else:
+            def prep(a, n=n, pad=pad):
+                a = a[:n]
+                return upload(np.concatenate([a, np.repeat(a[-1:], pad, 0)], 0), device)
+
+            planes = tuple(prep(a) for a in (rhost.y, rhost.u, rhost.v, dhost.y, dhost.u, dhost.v))
+        if carry_blur is None:
+            carry_blur = torch.zeros(rhost.y.shape[1:], dtype=torch.float32, device=device)
+        packed, carry_blur = body(*planes, carry_blur, not first, vif_egl, adm_egl)
+        packed = packed.cpu().numpy()
+        for row, k in enumerate(CHUNK_KEYS):
+            series[k].append(packed[row, :n])
+        n_frames += n
+        first = False
+        if rhost.y.shape[0] != dhost.y.shape[0]:
+            break  # one stream ended mid-batch: stop at the common prefix
+    return {k: np.concatenate(v) for k, v in series.items() if v}, n_frames
+
+
+def analyze_full_reference(
+    ref_path: str,
+    dis_path: str,
+    chunk: Optional[int] = None,
+    vmaf_model_path: Optional[str] = None,
+    quality_precision: Optional[str] = None,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Stream both videos once; return pooled PSNR/SSIM/VMAF and the
+    per-frame series. ``device`` defaults to the card, where the chunks run
+    on the kernels; on the CPU they run on the plain ops."""
+    resolve_precision(quality_precision)
+    dev = get_device(device)
+    impl = "kernel" if dev.type == "cuda" else "plain"
+    with VideoStream(ref_path, 1, 1) as probe:
+        chunk = auto_chunk(probe.info.width, probe.info.height, chunk)
+    # NEG models carry extractor options that change the feature programs.
+    model = load_model(vmaf_model_path) if vmaf_model_path else None
+    vif_egl = model.vif_enhn_gain_limit if model else None
+    adm_egl = model.adm_enhn_gain_limit if model else None
+    ref_it = prefetch(stage_to_device(VideoStream(ref_path, 1, chunk), chunk, dev), depth=1)
+    dis_it = prefetch(stage_to_device(VideoStream(dis_path, 1, chunk), chunk, dev), depth=1)
+    try:
+        s, n_frames = _quality_chunk_loop(ref_it, dis_it, chunk, vif_egl, adm_egl, dev, impl)
+    finally:
+        ref_it.close()
+        dis_it.close()
+    if n_frames == 0:
+        return {"n_frames": 0}
+    return pool_full_reference(s, n_frames, vmaf_model_path, model=model)
+
+
+def pool_full_reference(
+    s: dict[str, np.ndarray],
+    n_frames: int,
+    vmaf_model_path: Optional[str] = None,
+    model=None,
+) -> dict:
+    """Pool per-frame series (keys ``CHUNK_KEYS``, each (n_frames,)) into
+    the final metrics dict: PSNR of the mean MSE, mean SSIM, motion2 =
+    min(sad[t], sad[t+1]) with frame 0 at 0, and the per-frame VMAF mean."""
+    psnr = float(pooled_psnr(torch.from_numpy(np.asarray(s["mse_avg"], np.float32))))
+    ssim = float(np.mean(s["ssim_all"]))
+    sad = s["motion_sad"]
+    fwd = np.concatenate([sad[1:], [np.inf]])
+    motion2 = np.minimum(sad, fwd)
+    motion2[0] = 0.0
+    feats = {
+        "adm2": s["adm2"],
+        "motion2": motion2.astype(np.float32),
+        "vif_scale0": s["vif_scale0"],
+        "vif_scale1": s["vif_scale1"],
+        "vif_scale2": s["vif_scale2"],
+        "vif_scale3": s["vif_scale3"],
+    }
+    vmaf_is_fallback = model is None and not vmaf_model_path
+    if model is None and vmaf_model_path:
+        model = load_model(vmaf_model_path)
+    if model is None:
+        model = builtin_model()
+        logger.warning(
+            "No VMAF model file given; using %s — scores are qualitative, not "
+            "libvmaf-parity. Provide vmaf_v0.6.1.json via vmaf_model_path.",
+            model.name,
+        )
+    vmaf_per_frame = model.predict(feats).numpy()
+    return {
+        "n_frames": n_frames,
+        "psnr": psnr,
+        "ssim": ssim,
+        "vmaf": float(vmaf_per_frame.mean()),
+        "per_frame": {"psnr": s["psnr_avg"], "ssim": s["ssim_all"], "vmaf": vmaf_per_frame, **feats},
+        "vmaf_model": model.name,
+        # True when the score came from the builtin fallback, not a libvmaf
+        # model file (the CSV sink leaves the VMAF cell empty by default).
+        "vmaf_is_fallback": vmaf_is_fallback,
+    }

@@ -8,6 +8,7 @@ expression order as the JAX ops. Chroma upsampling is the index map
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # BT.601 limited-range YUV -> full-range RGB (same doubles as the JAX ops;
@@ -58,3 +59,21 @@ def yuv420_to_gray(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.T
     then the luma weights). The plain version of the ``gray`` CUDA kernel."""
     r, g, b = yuv420_to_rgb_planes(y, u, v)
     return r * GRAY_R + g * GRAY_G + b * GRAY_B
+
+
+def rgb_to_yuv420_np(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(N, H, W, 3) uint8 full-range RGB -> planar BT.601 limited YUV420 on
+    the host, with 2x2-average chroma (test-clip synthesis; even H and W)."""
+    rgb = rgb.astype(np.float64)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 16.0 + (65.481 * r + 128.553 * g + 24.966 * b) / 255.0
+    u = 128.0 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255.0
+    v = 128.0 + (112.0 * r - 93.786 * g - 18.214 * b) / 255.0
+    n, h, w = y.shape
+    u2 = u.reshape(n, h // 2, 2, w // 2, 2).mean(axis=(2, 4))
+    v2 = v.reshape(n, h // 2, 2, w // 2, 2).mean(axis=(2, 4))
+
+    def to_u8(x):
+        return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+
+    return to_u8(y), to_u8(u2), to_u8(v2)

@@ -9,7 +9,13 @@ nvcc, and without jax, run them alone with:
 Tolerances: gray atol 1e-3 (FMA ULPs; the kernel rounds like the plain
 ops, so it is exact in practice); motion rel 5e-3 on smooth frames
 (docs/PARITY.md: near-tie argmins), exact on integer-valued frames and 0 on
-a static scene.
+a static scene. Quality kernels, those of the JAX package's own kernel
+tests: SSEs equal (integer sums); SSIM means abs 2e-6; VIF scale 0 rel
+2e-4; SAD rel 1e-5 / abs 1e-5; blur carry abs 1e-4; decimated planes rel
+1e-4 / abs 1e-3; VIF scales 1-3 rel 3e-4; ADM num/den rel 2e-4, the
+approximation bands rel 1e-4 / abs 1e-3, adm2 rel 3e-4. The kernels sum
+per tile in float64 where the plain ops sum in f32, so the sums differ by
+f32 rounding; repeat runs of a kernel are bit-identical.
 """
 
 import numpy as np
@@ -75,7 +81,7 @@ def test_motion_kernel_matches_plain(dev, shape, block, radius):
 
 
 def test_suite_kernel_path_matches_plain(dev):
-    from rtvqa_tpu.io.video import DecodedClip
+    from rtvqa_tpu_torch.io.video import DecodedClip
     from rtvqa_tpu_torch.metrics.complexity import (
         METRIC_ORDER,
         calculate_average_scene_complexity,
@@ -96,3 +102,141 @@ def test_suite_kernel_path_matches_plain(dev):
     for key in METRIC_ORDER:
         tol = 5e-3 if key == "motion" else 1e-4
         assert getattr(k, key) == pytest.approx(getattr(p, key), rel=tol, abs=1e-6), key
+
+
+def _quality_inputs(rng, b, h, w, dev, noise=4):
+    hc, wc = -(-h // 2), -(-w // 2)
+    ref = [rng.integers(0, 256, s, np.uint8) for s in ((b, h, w), (b, hc, wc), (b, hc, wc))]
+    dis = [np.clip(a.astype(np.int16) + rng.integers(-noise, noise + 1, a.shape), 0, 255).astype(np.uint8)
+           for a in ref]
+    prev_blur = (rng.random((h, w)) * 255).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (*ref, *dis, prev_blur)]
+
+
+def _rel(got, want):
+    return float(((got.double() - want.double()).abs() / want.double().abs().clamp_min(1e-30)).max())
+
+
+QUALITY_SHAPES = [(3, 48, 64), (2, 50, 71), (3, 1080, 1920)]
+
+
+@pytest.mark.parametrize("b,h,w", QUALITY_SHAPES)
+@pytest.mark.parametrize("egl", [None, 1.0])
+def test_quality_kernel_matches_plain(dev, b, h, w, egl):
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda, quality_fused_plain
+
+    x = _quality_inputs(np.random.default_rng(3), b, h, w, dev)
+    before = quality_fused_cuda.launches
+    got = quality_fused_cuda(*x, egl=egl)
+    torch.cuda.synchronize()
+    assert quality_fused_cuda.launches == before + 1
+    want = quality_fused_plain(*x, egl=egl)
+    for key in ("sse_y", "sse_u", "sse_v"):
+        assert torch.equal(got[key], want[key]), key
+    hc, wc = x[1].shape[-2:]
+    for key, n_win in (("ssim_y_sum", (h // 4 - 1) * (w // 4 - 1)),
+                       ("ssim_u_sum", (hc // 4 - 1) * (wc // 4 - 1)),
+                       ("ssim_v_sum", (hc // 4 - 1) * (wc // 4 - 1))):
+        torch.testing.assert_close(got[key] / n_win, want[key] / n_win, rtol=0, atol=2e-6)
+    assert _rel(got["vif_scale0"], want["vif_scale0"]) < 2e-4
+    torch.testing.assert_close(got["sad_sum"], want["sad_sum"], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got["blur_carry"], want["blur_carry"], rtol=0, atol=1e-4)
+    for key in ("dec_ref", "dec_dis"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("b,h,w", QUALITY_SHAPES)
+@pytest.mark.parametrize("egl", [None, 1.0])
+def test_vif_tail_kernel_matches_plain(dev, b, h, w, egl):
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_plain
+    from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda, vif_tail_plain
+
+    q = quality_fused_plain(*_quality_inputs(np.random.default_rng(4), b, h, w, dev))
+    before = vif_tail_cuda.launches
+    got = vif_tail_cuda(q["dec_ref"], q["dec_dis"], egl=egl)
+    torch.cuda.synchronize()
+    assert vif_tail_cuda.launches == before + 1
+    want = vif_tail_plain(q["dec_ref"], q["dec_dis"], egl=egl)
+    for key in want:
+        assert _rel(got[key], want[key]) < 3e-4, key
+
+
+@pytest.mark.parametrize("b,h,w", QUALITY_SHAPES)
+@pytest.mark.parametrize("egl", [None, 1.0])
+def test_adm_kernels_match_plain(dev, b, h, w, egl):
+    from rtvqa_tpu_torch.kernels.adm import (
+        adm_scale_cuda,
+        adm_scale_plain,
+        adm_tail_cuda,
+        adm_tail_plain,
+    )
+
+    x = _quality_inputs(np.random.default_rng(5), b, h, w, dev)
+    ry, dy = x[0], x[3]
+    before = adm_scale_cuda.launches, adm_tail_cuda.launches
+    num, den, a_ref, a_dis = adm_scale_cuda(ry, dy, 0, egl)
+    tail = adm_tail_cuda(a_ref, a_dis, egl)
+    torch.cuda.synchronize()
+    assert (adm_scale_cuda.launches, adm_tail_cuda.launches) == (before[0] + 1, before[1] + 1)
+    pn, pd, pa_ref, pa_dis = adm_scale_plain(ry, dy, 0, egl)
+    assert _rel(num, pn) < 2e-4 and _rel(den, pd) < 2e-4
+    torch.testing.assert_close(a_ref, pa_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(a_dis, pa_dis, rtol=1e-4, atol=1e-3)
+    ptail = adm_tail_plain(pa_ref, pa_dis, egl)
+    assert _rel(tail["num"], ptail["num"]) < 2e-4 and _rel(tail["den"], ptail["den"]) < 2e-4
+    assert _rel((num + tail["num"]) / (den + tail["den"]), (pn + ptail["num"]) / (pd + ptail["den"])) < 3e-4
+
+
+def test_quality_kernels_identity(dev):
+    from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
+    from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda
+
+    x = _quality_inputs(np.random.default_rng(6), 2, 72, 96, dev)
+    ry, ru, rv = x[:3]
+    one = (ry[:1], ru[:1], rv[:1])
+    blur0 = quality_fused_cuda(*one, *one, x[6])["blur_carry"]
+    assert float(quality_fused_cuda(*one, *one, blur0)["sad_sum"][0]) == 0.0
+    q = quality_fused_cuda(ry, ru, rv, ry, ru, rv, x[6])
+    assert float(q["sse_y"].sum() + q["sse_u"].sum() + q["sse_v"].sum()) == 0.0
+    torch.testing.assert_close(q["ssim_y_sum"] / (17 * 23), torch.ones_like(q["ssim_y_sum"]),
+                               rtol=0, atol=1e-6)
+    torch.testing.assert_close(q["vif_scale0"], torch.ones_like(q["vif_scale0"]), rtol=0, atol=1e-5)
+    for v in vif_tail_cuda(q["dec_ref"], q["dec_dis"]).values():
+        torch.testing.assert_close(v, torch.ones_like(v), rtol=0, atol=1e-5)
+    num, den, a_ref, a_dis = adm_scale_cuda(ry, ry)
+    tail = adm_tail_cuda(a_ref, a_dis)
+    torch.testing.assert_close(num + tail["num"], den + tail["den"], rtol=1e-6, atol=0)
+
+
+def test_quality_kernels_repeat_bit_equal(dev):
+    from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
+    from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda
+
+    x = _quality_inputs(np.random.default_rng(8), 4, 270, 480, dev)
+    runs = []
+    for _ in range(2):
+        q = quality_fused_cuda(*x)
+        out = dict(q)
+        out.update(vif_tail_cuda(q["dec_ref"], q["dec_dis"]))
+        num, den, a_ref, a_dis = adm_scale_cuda(x[0], x[3])
+        tail = adm_tail_cuda(a_ref, a_dis)
+        out.update(num=num, den=den, a_ref=a_ref, tnum=tail["num"], tden=tail["den"])
+        runs.append(out)
+    torch.cuda.synchronize()
+    for key in runs[0]:
+        assert torch.equal(runs[0][key], runs[1][key]), key
+
+
+def test_quality_chunk_kernel_body_matches_plain(dev):
+    from rtvqa_tpu_torch.metrics.full_reference import CHUNK_KEYS, chunk_kernels, chunk_plain
+
+    x = _quality_inputs(np.random.default_rng(9), 5, 120, 176, dev)
+    got, blur_k = chunk_kernels(*x, True)
+    want, blur_p = chunk_plain(*x, True)
+    torch.cuda.synchronize()
+    for i, key in enumerate(CHUNK_KEYS):
+        tol = 1e-6 if key.startswith(("mse", "psnr")) else 3e-4
+        assert _rel(got[i], want[i]) < tol, key
+    torch.testing.assert_close(blur_k, blur_p, rtol=0, atol=1e-4)

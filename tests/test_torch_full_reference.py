@@ -1,0 +1,219 @@
+"""The port's full-reference quality engine vs the JAX package's, on the CPU.
+
+* the plain chunk body against ``_program_a`` + ``_program_b``;
+* the kernel chunk body (its wrappers take their plain versions on CPU
+  tensors) against ``_chunk_fused_tpu`` with the Pallas kernels in
+  interpret mode and exact f32 filters;
+* the streaming chunk loop over an encoded clip pair, three chunks with a
+  ragged tail, against the JAX engine, and against one single chunk (the
+  blur carry across chunk boundaries);
+* pooling, precision and chunk-size rules;
+* the frozen 1080p real-content goldens.
+
+Tolerances: MSE/PSNR/SSIM rel 1e-6 (integer sums in both; ULPs of the
+final division); motion SADs rel 1e-5; VIF/ADM rel 1e-4 against the JAX
+plain ops and rel 3e-4 against the Pallas kernels; pooled PSNR/SSIM rel
+1e-6, VMAF rel 1e-5 (per frame 1e-4, as the VIF/ADM it is made of). The
+goldens are held to the JAX test's rtol 1e-5 / atol 1e-6 (vif_scale0: see
+the test).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from rtvqa_tpu.metrics import full_reference as jfr
+from rtvqa_tpu.vmaf import model as jmodel
+from rtvqa_tpu_torch.metrics import full_reference as tfr
+from tests.test_torch_quality import _svr_model_json, content_pair, rel_err, t
+
+torch.set_num_threads(1)
+
+VQ_KEYS = ("vif_scale0", "vif_scale1", "vif_scale2", "vif_scale3", "adm2")
+
+
+def chunk_inputs(rng, b, h, w):
+    """Camera-like luma pair, random chroma pair (uint8), and a prev blur."""
+    ry, dy = content_pair(rng, b, h, w)
+    hc, wc = -(-h // 2), -(-w // 2)
+    ru, rv = (rng.integers(0, 256, (b, hc, wc), np.uint8) for _ in range(2))
+    du, dv = (np.clip(a.astype(np.int16) + rng.integers(-6, 7, a.shape), 0, 255).astype(np.uint8)
+              for a in (ru, rv))
+    prev_blur = (rng.random((h, w)) * 255).astype(np.float32)
+    return (ry, ru, rv, dy, du, dv), prev_blur
+
+
+def check_packed(got, want, vq_rtol):
+    for i, key in enumerate(tfr.CHUNK_KEYS):
+        g, w = got[i], np.asarray(want[i])
+        if key == "motion_sad":
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6, err_msg=key)
+        elif key in VQ_KEYS:
+            assert rel_err(g, w) < vq_rtol, key
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-6, err_msg=key)
+
+
+def test_chunk_keys_match_jax():
+    assert tfr.CHUNK_KEYS == jfr.CHUNK_KEYS
+
+
+@pytest.mark.parametrize("shape", [(48, 64), (50, 70)])
+@pytest.mark.parametrize("has_prev,egl", [(False, None), (True, 1.0)])
+def test_chunk_plain_matches_jax_programs(rng, shape, has_prev, egl):
+    planes, prev_blur = chunk_inputs(rng, 3, *shape)
+    pa, jblur = jfr._program_a(*planes, prev_blur, jnp.asarray(has_prev))
+    pb = jfr._program_b(planes[0], planes[3], vif_egl=egl, adm_egl=egl)
+    want = np.concatenate([np.asarray(pa), np.asarray(pb)])
+    got, blur = tfr.chunk_plain(*map(t, planes), t(prev_blur), has_prev, egl, egl)
+    check_packed(got.numpy(), want, 1e-4)
+    np.testing.assert_allclose(blur.numpy(), np.asarray(jblur), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(48, 64), (50, 70)])
+@pytest.mark.parametrize("has_prev,egl", [(True, None), (False, 1.0)])
+def test_chunk_kernel_body_matches_jax_fused(rng, shape, has_prev, egl):
+    planes, prev_blur = chunk_inputs(rng, 2, *shape)
+    want, jblur = jfr._chunk_fused_tpu(
+        *planes, prev_blur, jnp.asarray(has_prev), egl, egl, fast3=False, interpret=True
+    )
+    got, blur = tfr.chunk_kernels(*map(t, planes), t(prev_blur), has_prev, egl, egl)
+    check_packed(got.numpy(), np.asarray(want), 3e-4)
+    np.testing.assert_allclose(blur.numpy(), np.asarray(jblur), rtol=1e-5, atol=1e-4)
+
+
+def test_chunk_kernels_refuse_wide_frames():
+    y = torch.zeros((1, 2, 3841), dtype=torch.uint8)
+    c = torch.zeros((1, 1, 1921), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfr.chunk_kernels(y, c, c, y, c, c, torch.zeros(2, 3841), True)
+
+
+@pytest.fixture(scope="module")
+def clip_pair(tmp_path_factory):
+    """An 11-frame 96x128 camera-like clip, encoded at CRF 12 (ref) and
+    re-encoded at CRF 34 (dis)."""
+    from fractions import Fraction
+
+    from rtvqa_tpu_torch.io import video as vio
+
+    d = tmp_path_factory.mktemp("fr_clip")
+    rng = np.random.default_rng(21)
+    n, h, w = 11, 96, 128
+    y, _ = content_pair(rng, n, h, w)
+    y = np.stack([np.roll(y[0], (2 * i, -3 * i), (0, 1)) for i in range(n)])
+    u = rng.integers(90, 170, (n, h // 2, w // 2), np.uint8)
+    v = rng.integers(90, 170, (n, h // 2, w // 2), np.uint8)
+    ref, dis = str(d / "ref.mp4"), str(d / "dis.mp4")
+    vio.encode_raw_yuv420(ref, y, u, v, fps=Fraction(30, 1), crf=12, preset="veryfast")
+    vio.transcode(ref, dis, crf=34, preset="veryfast")
+    return ref, dis, n
+
+
+def test_chunk_loop_matches_jax_engine(clip_pair):
+    ref, dis, n = clip_pair
+    want = jfr.analyze_full_reference(ref, dis, chunk=4)
+    got = tfr.analyze_full_reference(ref, dis, chunk=4, device="cpu")
+    assert got["n_frames"] == want["n_frames"] == n
+    for key in ("psnr", "ssim", "vmaf"):
+        assert got[key] == pytest.approx(want[key], rel=1e-5), key
+    assert got["vmaf_is_fallback"] and got["vmaf_model"] == want["vmaf_model"]
+    for key, w in want["per_frame"].items():
+        tol = 1e-4 if key in VQ_KEYS + ("vmaf",) else 1e-5  # VMAF follows VIF/ADM
+        np.testing.assert_allclose(got["per_frame"][key], np.asarray(w), rtol=tol, atol=1e-6,
+                                   err_msg=key)
+    assert got["per_frame"]["motion2"][0] == 0.0 and got["per_frame"]["motion2"][1:].min() > 0
+
+
+def test_chunk_loop_carries_blur_across_chunks(clip_pair):
+    """Three chunks (4, 4, 3 padded to 4) give the series of one chunk."""
+    ref, dis, n = clip_pair
+    chunked = tfr.analyze_full_reference(ref, dis, chunk=4, device="cpu")["per_frame"]
+    whole = tfr.analyze_full_reference(ref, dis, chunk=12, device="cpu")["per_frame"]
+    for key in whole:
+        assert len(chunked[key]) == n, key
+        np.testing.assert_allclose(chunked[key], whole[key], rtol=1e-6, atol=1e-6, err_msg=key)
+
+
+def test_analyze_full_reference_routes(clip_pair):
+    ref, dis, _ = clip_pair
+    with pytest.raises(NotImplementedError, match="fast"):
+        tfr.analyze_full_reference(ref, dis, device="cpu", quality_precision="fast")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tfr.analyze_full_reference(ref, dis)
+
+
+def test_resolve_precision():
+    for q in (None, "auto", "exact"):
+        assert tfr.resolve_precision(q) is None
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tfr.resolve_precision("fast")
+    with pytest.raises(ValueError, match="quality_precision"):
+        tfr.resolve_precision("bogus")
+
+
+@pytest.mark.parametrize("w,h,req", [(1920, 1080, None), (3840, 2160, None), (640, 360, None),
+                                     (1920, 1080, 4), (1920, 1080, 7), (64, 48, None)])
+def test_auto_chunk_matches_jax(w, h, req):
+    assert tfr.auto_chunk(w, h, req) == jfr.auto_chunk(w, h, req)
+
+
+@pytest.mark.parametrize("with_model", [False, True])
+def test_pool_full_reference_matches_jax(rng, tmp_path, with_model):
+    n = 9
+    s = {k: rng.uniform(0.2, 1.0, n).astype(np.float32) for k in tfr.CHUNK_KEYS}
+    s["mse_avg"] = rng.uniform(1, 30, n).astype(np.float32)
+    s["motion_sad"] = rng.uniform(0, 8, n).astype(np.float32)
+    s["motion_sad"][0] = 0.0
+    path = None
+    if with_model:
+        path = str(tmp_path / "model.json")
+        _svr_model_json(path, rng)
+    want = jfr.pool_full_reference(s, n, path)
+    got = tfr.pool_full_reference(s, n, path)
+    assert got["n_frames"] == n and got["vmaf_is_fallback"] == want["vmaf_is_fallback"] == (not with_model)
+    assert got["vmaf_model"] == want["vmaf_model"]
+    for key in ("psnr", "ssim"):
+        assert got[key] == pytest.approx(want[key], rel=1e-6), key
+    assert got["vmaf"] == pytest.approx(want["vmaf"], rel=1e-5)
+    np.testing.assert_array_equal(got["per_frame"]["motion2"], np.asarray(want["per_frame"]["motion2"]))
+    np.testing.assert_allclose(got["per_frame"]["vmaf"], np.asarray(want["per_frame"]["vmaf"]), rtol=1e-5)
+
+
+def test_pool_with_model_from_jax_weights(rng):
+    import dataclasses
+
+    from rtvqa_tpu_torch.vmaf.model import model_from_numpy
+
+    n = 6
+    s = {k: rng.uniform(0.5, 1.0, n).astype(np.float32) for k in tfr.CHUNK_KEYS}
+    jm = jmodel.builtin_model()
+    want = jfr.pool_full_reference(s, n, model=jm)
+    got = tfr.pool_full_reference(s, n, model=model_from_numpy(dataclasses.asdict(jm)))
+    assert got["vmaf"] == pytest.approx(want["vmaf"], rel=1e-5)
+
+
+def test_real_content_1080p_feature_goldens(tmp_path):
+    """The port's plain engine on the frozen real-content 1080p pair
+    (tests/real_content.py), held to the JAX test's rtol 1e-5 / atol 1e-6,
+    except vif_scale0 at rtol 5e-5 (measured 4.23e-5): the goldens carry
+    the JAX CPU path's f32 reduction error over 2M pixels, and the port's
+    sum agrees with a float64 accumulation of the same per-pixel terms to
+    4e-8 (ROADMAP.md queue C)."""
+    from tests import real_content
+
+    golden = np.load(real_content.GOLDEN_PATH)
+    ref, dis = real_content.build_pair(str(tmp_path))
+    assert real_content.decoded_luma_digest(ref) == str(golden["digest_ref"])
+    assert real_content.decoded_luma_digest(dis) == str(golden["digest_dis"])
+    res = tfr.analyze_full_reference(ref, dis, chunk=4, device="cpu")
+    assert res["n_frames"] == real_content.N_FRAMES
+    for key in real_content.FEATURE_KEYS:
+        got = np.asarray(res["per_frame"][key], np.float32)
+        want = np.asarray(golden[key])
+        finite = np.isfinite(want)
+        np.testing.assert_array_equal(finite, np.isfinite(got), err_msg=key)
+        rtol = 5e-5 if key == "vif_scale0" else 1e-5
+        np.testing.assert_allclose(got[finite], want[finite], rtol=rtol, atol=1e-6, err_msg=key)

@@ -1,9 +1,12 @@
 """The port's CLI and analyzer vs the JAX package's on the same encoded clip,
-plus the routes the port refuses and proof that it never imports jax.
+plus the routes the port refuses, the device rule (the card unless the CPU
+is asked for) and proof that it never imports jax or the JAX package.
 
 The CSV rows must agree column by column: the identity columns exactly, the
 complexity columns within the suite tolerances (rel 1e-4; motion rel 5e-3,
-docs/PARITY.md motion row), the quality cells empty in both. The edge column
+docs/PARITY.md motion row), the quality cells empty in both on the
+``"none"`` route and within rel 1e-4 on the ``"native"`` route (VMAF from
+the builtin model, as ``allow_builtin_vmaf`` asks). The edge column
 is an integer count of per-pixel decisions on f32 gray: inside its fused
 program XLA contracts the gray conversion into FMAs (on this clip 8.5k of
 the 37k sampled gray pixels move by <= 3e-5), which flips a few edge pixels
@@ -22,9 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from rtvqa_tpu.config import Config
 from rtvqa_tpu.io import video as vio
 from rtvqa_tpu.pipeline.csv_sink import CSV_COLUMNS, read_rows
+from rtvqa_tpu_torch.config import Config
 
 torch.set_num_threads(1)
 
@@ -49,12 +52,26 @@ def env(tmp_path_factory):
     make_clip(clip)
     cfg = {"crf": 20, "resize_width": 32, "resize_height": 32, "frame_interval": 3,
            "quality_backend": "none"}
+    native = {"quality_backend": "native", "streaming_complexity": False,
+              "allow_builtin_vmaf": True}
     paths = {}
-    for name in ("jax", "torch"):
+    for name, extra in (("jax", {}), ("torch", {}), ("jax_native", native),
+                        ("torch_native", native)):
         paths[name] = str(d / f"{name}.csv")
         with open(d / f"{name}.json", "w") as f:
-            json.dump({**cfg, "csv_file": paths[name]}, f)
+            json.dump({**cfg, **extra, "csv_file": paths[name]}, f)
     return {"clip": clip, "dir": d, "csv": paths}
+
+
+def _compare_rows(jrow, trow):
+    assert list(trow) == CSV_COLUMNS
+    for col in IDENTITY_COLUMNS:
+        assert trow[col] == jrow[col], col
+    decision_counts = ("Advanced Motion Complexity", "Edge Detection Complexity")
+    for col in CSV_COLUMNS[7:]:
+        tol = 5e-3 if col in decision_counts else 1e-4
+        assert float(trow[col]) == pytest.approx(float(jrow[col]), rel=tol, abs=1e-6), col
+    assert float(trow["Advanced Motion Complexity"]) > 0
 
 
 def test_cli_row_matches_jax_cli(env):
@@ -63,24 +80,34 @@ def test_cli_row_matches_jax_cli(env):
 
     d = env["dir"]
     assert jax_main([str(d / "jax.json"), env["clip"]]) == 0
-    assert torch_main([str(d / "torch.json"), env["clip"]]) == 0
+    assert torch_main([str(d / "torch.json"), env["clip"], "--device", "cpu"]) == 0
     (jrow,), (trow,) = read_rows(env["csv"]["jax"]), read_rows(env["csv"]["torch"])
-    assert list(trow) == CSV_COLUMNS
-    for col in IDENTITY_COLUMNS:
-        assert trow[col] == jrow[col], col
     for col in QUALITY_COLUMNS:
         assert trow[col] == jrow[col] == "", col
-    decision_counts = ("Advanced Motion Complexity", "Edge Detection Complexity")
-    for col in CSV_COLUMNS[7:]:
-        tol = 5e-3 if col in decision_counts else 1e-4
-        assert float(trow[col]) == pytest.approx(float(jrow[col]), rel=tol, abs=1e-6), col
-    assert float(trow["Advanced Motion Complexity"]) > 0
+    _compare_rows(jrow, trow)
+
+
+def test_cli_native_row_matches_jax_cli(env):
+    """``"quality_backend": "native"`` with ``"streaming_complexity": false``:
+    PSNR/SSIM/VMAF over every frame, then the complexity pass."""
+    from rtvqa_tpu.cli import main as jax_main
+    from rtvqa_tpu_torch.cli import main as torch_main
+
+    d = env["dir"]
+    assert jax_main([str(d / "jax_native.json"), env["clip"]]) == 0
+    assert torch_main([str(d / "torch_native.json"), env["clip"], "--device", "cpu"]) == 0
+    (jrow,), (trow,) = read_rows(env["csv"]["jax_native"]), read_rows(env["csv"]["torch_native"])
+    for col in QUALITY_COLUMNS:
+        assert jrow[col] != "", col
+        assert float(trow[col]) == pytest.approx(float(jrow[col]), rel=1e-4), col
+    assert 20 < float(trow["PSNR"]) < 60 and 0.5 < float(trow["SSIM"]) <= 1.0
+    _compare_rows(jrow, trow)
 
 
 def test_cli_json_line(env, capsys):
     from rtvqa_tpu_torch.cli import main as torch_main
 
-    assert torch_main([str(env["dir"] / "torch.json"), env["clip"], "--json"]) == 0
+    assert torch_main([str(env["dir"] / "torch.json"), env["clip"], "--json", "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(out) == {"metrics", "profile"}
     assert {"encode", "decode", "complexity"} <= set(out["profile"]["stages"])
@@ -97,7 +124,8 @@ def test_cli_refuses_unported_modes(env, flag):
 @pytest.mark.parametrize(
     "overrides,match",
     [
-        ({}, "quality_backend 'native'"),            # the default config
+        ({}, "quality_backend 'native'.*ROADMAP.md queue A, item 3"),  # the default config
+        ({"quality_backend": "native", "streaming_complexity": True}, "analyze_combined"),
         ({"quality_backend": "none", "streaming_complexity": True}, "streaming"),
         ({"quality_backend": "none", "streaming_complexity": True,
           "analyze_original": True}, "streaming"),
@@ -119,7 +147,29 @@ def test_analyzer_refuses_auto_streaming_on_large_files(env, monkeypatch):
 
     monkeypatch.setattr(analyzer, "STREAMING_AUTO_BYTES", 16)
     with pytest.raises(NotImplementedError, match="streaming"):
-        analyzer.analyze_video(env["clip"], Config(quality_backend="none"))
+        analyzer.analyze_video(env["clip"], Config(quality_backend="none"), device="cpu")
+
+
+def test_device_defaults_to_the_card(env, monkeypatch):
+    """Without a card, the default device raises; the CPU runs only when
+    asked for."""
+    from rtvqa_tpu_torch.cli import main as torch_main
+    from rtvqa_tpu_torch.device import get_device
+    from rtvqa_tpu_torch.pipeline import analyzer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        get_device(None)
+    with pytest.raises(RuntimeError, match="is_available"):
+        get_device("cuda")
+    assert get_device("cpu") == torch.device("cpu")
+
+    def no_encode(*a, **k):
+        raise AssertionError("transcode must not run without a device")
+
+    monkeypatch.setattr(analyzer.vio, "transcode", no_encode)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        torch_main([str(env["dir"] / "torch.json"), env["clip"]])
 
 
 def test_analyzer_missing_video_raises():
@@ -131,15 +181,17 @@ def test_analyzer_missing_video_raises():
 
 _NO_JAX = r"""
 import sys
-sys.modules["jax"] = None   # any `import jax` now raises ImportError
+sys.modules["jax"] = None        # any `import jax` now raises ImportError,
+sys.modules["rtvqa_tpu"] = None  # and so does any import of the JAX package
 import importlib, pathlib, numpy as np, torch
 torch.set_num_threads(1)
 pkg = pathlib.Path(sys.argv[1]) / "rtvqa_tpu_torch"
 for f in sorted(pkg.rglob("*.py")):
     mod = ".".join(f.relative_to(pkg.parent).with_suffix("").parts)
     importlib.import_module(mod.removesuffix(".__init__"))
-from rtvqa_tpu.io.video import DecodedClip
+from rtvqa_tpu_torch.io.video import DecodedClip
 from rtvqa_tpu_torch.metrics.complexity import calculate_average_scene_complexity
+from rtvqa_tpu_torch.metrics.full_reference import CHUNK_KEYS, chunk_kernels
 rng = np.random.default_rng(0)
 n, h, w = 5, 48, 64
 clip = DecodedClip(
@@ -150,7 +202,10 @@ clip = DecodedClip(
     bit_rate=0, avg_fps=10.0)
 res = calculate_average_scene_complexity(clip, 32, 32, device="cpu")
 assert all(np.isfinite(res.as_tuple())), res
-assert sys.modules["jax"] is None
+planes = [torch.from_numpy(a) for a in (clip.y, clip.u, clip.v, np.roll(clip.y, 1, 0), clip.v, clip.u)]
+packed, blur = chunk_kernels(*planes, torch.zeros(h, w), False)
+assert packed.shape == (len(CHUNK_KEYS), n) and bool(torch.isfinite(packed[:-5]).all())
+assert sys.modules["jax"] is None and sys.modules["rtvqa_tpu"] is None
 print("OK", res.motion)
 """
 
@@ -166,9 +221,12 @@ def test_port_never_imports_jax():
 
 
 def test_port_sources_have_no_jax_import():
-    for f in (REPO / "rtvqa_tpu_torch").rglob("*.py"):
+    """Neither the port nor chip_smoke.py imports jax or anything of the JAX
+    package, not even its jax-free modules: the port keeps its own copies."""
+    import re
+
+    banned = re.compile(r"^\s*(from|import)\s+(jax|rtvqa_tpu)(\.|\s|$)")
+    files = [*(REPO / "rtvqa_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    for f in files:
         for line in f.read_text().splitlines():
-            stripped = line.strip()
-            assert not stripped.startswith(("import jax", "from jax")), f"{f}: {line}"
-    for line in (REPO / "chip_smoke.py").read_text().splitlines():
-        assert not line.strip().startswith(("import jax", "from jax", "from rtvqa_tpu.ops")), line
+            assert not banned.match(line), f"{f}: {line}"
