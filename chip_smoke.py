@@ -19,7 +19,21 @@ cannot decode there):
   ADM on a small input, then the streaming chunk loop
   (``metrics.full_reference._quality_chunk_loop`` + ``pool_full_reference``,
   what ``analyze_full_reference`` runs after decoding) over 128 frames in
-  two chunks, once on the kernels and once on the plain versions.
+  two chunks, once on the kernels and once on the plain versions;
+* the default config's route (``quality_backend: "native"``,
+  ``streaming_complexity`` null): the combined loop
+  (``metrics.full_reference.combined_chunk_loop``, what ``analyze_combined``
+  runs after opening the streams) over the same 128 pairs at
+  ``frame_interval`` 10 and 1, tapping the sampled dis frames into the
+  streaming complexity accumulator (``complexity_chunk`` 128), on the
+  kernels and on the plain versions; its quality series against the loop
+  without the tap, its complexity against
+  ``calculate_average_scene_complexity`` on the same sampled frames;
+* the wide route at DCI 4K (4096x2160, frames wider than 3840): kernel 4
+  (VIF at one scale) against its plain version at each scale of a 14-frame
+  chunk, the four-scale chain against the fused quality kernel's and the
+  VIF tail's values on 1080p frames, then the chunk loop over 28 pairs in
+  two chunks on the kernels and on the plain versions.
 
 The kernels' launch counts are set to 0 just before each path's kernel run
 and read just after it; every kernel of the path must have launched. Any
@@ -50,6 +64,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N, H, W = 128, 1080, 1920
+WIDE_N, WIDE_H, WIDE_W = 28, 2160, 4096   # DCI 4K: two chunks of auto_chunk = 14
+FPS = 30.0
 SEED = 0
 BLOCK, RADIUS = 16, 8          # the suite's defaults; the pyramid halves them
 GRAY_ATOL = 1e-3               # tests/test_pallas_kernels.py:96 (FMA ULPs)
@@ -205,6 +221,14 @@ def vif_tail_work(b, h1, w1):
     ops = b * (_vif_stats_ops(9) * h1 * w1 + _filter_dec_ops(5, h1, w1)
                + _vif_stats_ops(5) * h2 * w2 + _filter_dec_ops(3, h2, w2) + _vif_stats_ops(3) * h3 * w3)
     return 2 * 4 * b * h1 * w1 + 3 * 4 * b, ops
+
+
+def vif_scale_work(b, h, w, in_bytes=1):
+    """Kernel 4 at scale 0 (17-tap statistics, 9-tap decimation of both
+    frames): the pair in, the vif values and the decimated pair out."""
+    h2, w2 = (h + 1) // 2, (w + 1) // 2
+    nbytes = 2 * in_bytes * b * h * w + 2 * 4 * b * h2 * w2 + 4 * b
+    return nbytes, b * (_vif_stats_ops(17) * h * w + _filter_dec_ops(9, h, w))
 
 
 def adm_scale0_work(b, h, w):
@@ -536,46 +560,53 @@ def phase_quality_oracle(dev) -> None:
     print("quality oracle: " + ", ".join(f"{k} max abs {v:.3g}" for k, v in worst.items()))
 
 
-def phase_quality(dev, ref_np, dis_np) -> dict:
-    """The streaming chunk loop over N frames on the kernels, then on the
-    plain versions; pooled with the builtin VMAF model."""
-    from rtvqa_tpu_torch.io.stream import FrameBatch, prefetch, stage_to_device
-    from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
-    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
-    from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda
+def frame_batches(planes, chunk: int):
+    """``FrameBatch``es of ``chunk`` frames over (y, u, v) arrays, as the
+    decoder yields them; timestamps 1/FPS apart."""
+    from rtvqa_tpu_torch.io.stream import FrameBatch
+
+    ts = np.arange(planes[0].shape[0]) * 1000.0 / FPS
+    for s in range(0, planes[0].shape[0], chunk):
+        yield FrameBatch(*(a[s:s + chunk] for a in planes), ts[s:s + chunk], s)
+
+
+def run_loop(dev, ref_np, dis_np, chunk: int, impl: str, combined=None):
+    """The quality chunk loop (or, with ``combined`` = (interval,
+    complexity_chunk), the combined loop) over prefetched, device-staged
+    batches, as ``analyze_full_reference`` / ``analyze_combined`` run it
+    after opening the streams. Returns (series, pooled dict, complexity or
+    None)."""
+    from rtvqa_tpu_torch.io.stream import prefetch, stage_to_device
+    from rtvqa_tpu_torch.metrics.complexity_streaming import ComplexityAccumulator
     from rtvqa_tpu_torch.metrics.full_reference import (
-        CHUNK_KEYS,
         _quality_chunk_loop,
-        auto_chunk,
+        combined_chunk_loop,
         pool_full_reference,
     )
 
-    chunk = auto_chunk(W, H)
-    ts = np.arange(N) * 1000.0 / 30.0
-
-    def batches(planes):
-        for s in range(0, N, chunk):
-            yield FrameBatch(*(a[s:s + chunk] for a in planes), ts[s:s + chunk], s)
-
-    def run(impl):
-        ref_it = prefetch(stage_to_device(batches(ref_np), chunk, dev), depth=1)
-        dis_it = prefetch(stage_to_device(batches(dis_np), chunk, dev), depth=1)
-        try:
+    ref_it, dis_it = (prefetch(stage_to_device(frame_batches(p, chunk), chunk, dev), depth=1)
+                      for p in (ref_np, dis_np))
+    comp = None
+    try:
+        if combined is None:
             series, n = _quality_chunk_loop(ref_it, dis_it, chunk, None, None, dev, impl)
-        finally:
-            ref_it.close()
-            dis_it.close()
-        return series, pool_full_reference(series, n)
+        else:
+            interval, c_chunk = combined
+            acc = ComplexityAccumulator(64, 64, 0.8, c_chunk, motion_impl=impl, device=dev)
+            series, n, comp = combined_chunk_loop(ref_it, dis_it, chunk, acc, interval, "dis",
+                                                  None, None, dev, impl)
+    finally:
+        ref_it.close()
+        dis_it.close()
+    return series, pool_full_reference(series, n), comp
 
-    run("kernel"), run("plain")  # warm-up: pinned host buffers, allocator pools
-    kernels = (quality_fused_cuda, vif_tail_cuda, adm_scale_cuda, adm_tail_cuda)
-    for k in kernels:
-        k.launches = 0
-    (s_k, pool_k), t_k = wall_s(lambda: run("kernel"))
-    launches = {k.__name__: k.launches for k in kernels}
-    (s_p, pool_p), t_p = wall_s(lambda: run("plain"))
-    if pool_k["n_frames"] != N or pool_p["n_frames"] != N:
-        raise AssertionError(f"quality loop saw {pool_k['n_frames']} / {pool_p['n_frames']} frames, not {N}")
+
+def check_quality(label, n, s_k, pool_k, s_p, pool_p) -> None:
+    """The kernel path's series and pooled values against the plain path's."""
+    from rtvqa_tpu_torch.metrics.full_reference import CHUNK_KEYS
+
+    if pool_k["n_frames"] != n or pool_p["n_frames"] != n:
+        raise AssertionError(f"{label}: loop saw {pool_k['n_frames']} / {pool_p['n_frames']} frames, not {n}")
     tols = {"motion_sad": (SAD_RTOL, SAD_ATOL), "vif_scale0": (VIF0_RTOL, 0.0), "adm2": (ADM2_RTOL, 0.0)}
     for key in CHUNK_KEYS:
         if key.startswith("vif_scale") and key != "vif_scale0":
@@ -585,21 +616,206 @@ def phase_quality(dev, ref_np, dis_np) -> dict:
         else:
             rtol, atol = tols.get(key, (SSE_RTOL, 0.0))
         a, b = s_k[key], s_p[key]
-        if a.shape != (N,) or not np.isfinite(a).all():
-            raise AssertionError(f"quality series {key}: shape {a.shape}, finite {np.isfinite(a).all()}")
-        check_close(f"quality series {key}", torch.from_numpy(a), torch.from_numpy(b), rtol, atol)
+        if a.shape != (n,) or not np.isfinite(a).all():
+            raise AssertionError(f"{label} series {key}: shape {a.shape}, finite {np.isfinite(a).all()}")
+        check_close(f"{label} series {key}", torch.from_numpy(a), torch.from_numpy(b), rtol, atol)
     for key, rtol, atol in (("psnr", SSE_RTOL, 0.0), ("ssim", 0.0, SSIM_ATOL), ("vmaf", VMAF_RTOL, 0.0)):
         a, b = pool_k[key], pool_p[key]
         if not (np.isfinite(a) and abs(a - b) <= atol + rtol * abs(b)):
-            raise AssertionError(f"pooled {key}: kernel path {a} vs plain {b}")
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"{name} was not launched on the quality kernel run")
+            raise AssertionError(f"{label} pooled {key}: kernel path {a} vs plain {b}")
+
+
+def check_launches(label, launches: dict, at_least: dict, exactly: dict | None = None) -> None:
+    for name, low in at_least.items():
+        if launches[name] < low:
+            raise AssertionError(f"{name} launched {launches[name]} times on the {label} kernel run, "
+                                 f"not at least {low}")
+    for name, count in (exactly or {}).items():
+        if launches[name] != count:
+            raise AssertionError(f"{name} launched {launches[name]} times on the {label} kernel run, "
+                                 f"not {count}")
+
+
+def counted_run(kernels, fn):
+    """Set every kernel's count to 0, run ``fn`` (timed), read the counts."""
+    for k in kernels:
+        k.launches = 0
+    out, t = wall_s(fn)
+    return out, t, {k.__name__: k.launches for k in kernels}
+
+
+def quality_kernels():
+    from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
+    from rtvqa_tpu_torch.kernels.gray import yuv420_to_gray_cuda
+    from rtvqa_tpu_torch.kernels.motion import block_match_motion_cuda
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
+    from rtvqa_tpu_torch.kernels.vif import vif_scale_cuda, vif_tail_cuda
+
+    return (quality_fused_cuda, vif_tail_cuda, adm_scale_cuda, adm_tail_cuda, vif_scale_cuda,
+            yuv420_to_gray_cuda, block_match_motion_cuda)
+
+
+def phase_quality(dev, ref_np, dis_np):
+    """The streaming chunk loop over N frames on the kernels, then on the
+    plain versions; pooled with the builtin VMAF model. Returns (launches,
+    kernel-path series)."""
+    from rtvqa_tpu_torch.metrics.full_reference import auto_chunk
+
+    chunk = auto_chunk(W, H)
+    run_loop(dev, ref_np, dis_np, chunk, "kernel"), run_loop(dev, ref_np, dis_np, chunk, "plain")  # warm-up
+    (s_k, pool_k, _), t_k, launches = counted_run(
+        quality_kernels(), lambda: run_loop(dev, ref_np, dis_np, chunk, "kernel"))
+    (s_p, pool_p, _), t_p = wall_s(lambda: run_loop(dev, ref_np, dis_np, chunk, "plain"))
+    check_quality("quality", N, s_k, pool_k, s_p, pool_p)
+    check_launches("quality", launches, {k: 1 for k in ("quality_fused_cuda", "vif_tail_cuda",
+                                                        "adm_scale_cuda", "adm_tail_cuda")})
     print(f"quality: {N}x{H}x{W} in {N // chunk} chunks of {chunk}: kernel path {t_k:.4f} s, "
           f"plain path {t_p:.4f} s; launches {launches}; psnr {pool_k['psnr']:.6f} "
           f"ssim {pool_k['ssim']:.6f} vmaf {pool_k['vmaf']:.6f} (plain {pool_p['psnr']:.6f} "
           f"{pool_p['ssim']:.6f} {pool_p['vmaf']:.6f})")
-    profile_device("quality, kernel path", lambda: run("kernel"), top=12)
+    profile_device("quality, kernel path", lambda: run_loop(dev, ref_np, dis_np, chunk, "kernel"), top=12)
+    return launches, s_k
+
+
+def phase_combined(dev, ref_np, dis_np, s_alone) -> None:
+    """The default config's combined loop over the N pairs at frame_interval
+    10 and 1, complexity_chunk 128, on the kernels and on the plain
+    versions."""
+    from rtvqa_tpu_torch.io.video import DecodedClip
+    from rtvqa_tpu_torch.metrics.complexity import METRIC_ORDER, calculate_average_scene_complexity
+    from rtvqa_tpu_torch.metrics.full_reference import auto_chunk
+
+    chunk = auto_chunk(W, H)
+    dis_y, dis_u, dis_v = dis_np
+    ts = np.arange(N) * 1000.0 / FPS
+    for interval in (10, 1):
+        def run(impl, interval=interval):
+            return run_loop(dev, ref_np, dis_np, chunk, impl, combined=(interval, 128))
+
+        run("kernel"), run("plain")  # warm-up
+        (s_k, pool_k, comp_k), t_k, counts = counted_run(quality_kernels(), lambda: run("kernel"))
+        (s_p, pool_p, comp_p), t_p = wall_s(lambda: run("plain"))
+        # The tap leaves the quality series bit for bit as they are without it.
+        for key, a in s_alone.items():
+            if not np.array_equal(s_k[key], a):
+                raise AssertionError(f"combined (interval {interval}) series {key} differs from the "
+                                     "quality loop without the tap")
+        check_quality(f"combined (interval {interval})", N, s_k, pool_k, s_p, pool_p)
+        sl = slice(interval - 1, None, interval)  # decode_sampled's 1-based sampling
+        n_s = len(ts[sl])
+        clip = DecodedClip(y=dis_y[sl], u=dis_u[sl], v=dis_v[sl], timestamps_ms=ts[sl], width=W,
+                           height=H, n_frames_total=N, bit_rate=0, avg_fps=FPS / interval)
+        suite_k = calculate_average_scene_complexity(clip, 64, 64, device=dev)
+        worst = {}
+        for key in METRIC_ORDER:
+            tol = MOTION_RTOL if key == "motion" else SUITE_RTOL
+            for label, got, want in (("suite", comp_k, suite_k), ("plain", comp_k, comp_p)):
+                a, b = getattr(got, key), getattr(want, key)
+                if not (np.isfinite(a) and abs(a - b) <= tol * max(abs(b), 1e-12)):
+                    raise AssertionError(f"combined (interval {interval}) {key}: kernel path {a} vs {label} {b}")
+                worst[key] = max(worst.get(key, 0.0), abs(a - b) / max(abs(b), 1e-12))
+        check_launches(f"combined (interval {interval})", counts,
+                       {k: 1 for k in ("quality_fused_cuda", "vif_tail_cuda", "adm_scale_cuda",
+                                       "adm_tail_cuda", "yuv420_to_gray_cuda", "block_match_motion_cuda")})
+        print(f"combined (interval {interval}): {N}x{H}x{W} pairs, {n_s} sampled dis frames: kernel "
+              f"path {t_k:.4f} s, plain path {t_p:.4f} s; launches {counts}; quality series equal to "
+              f"the loop without the tap; complexity max rel vs suite/plain {json.dumps(worst)}; "
+              f"values {comp_k}")
+        profile_device(f"combined (interval {interval}), kernel path", lambda: run("kernel"), top=12)
+        del s_k, s_p
+        torch.cuda.empty_cache()
+
+
+def phase_vif_scale(dev, ref_np, dis_np, ref_1080, dis_1080) -> dict:
+    """Kernel 4 at DCI 4K against its plain version, scale by scale, and the
+    four-scale chain against the fused kernel's VIF at 1080p."""
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
+    from rtvqa_tpu_torch.kernels.vif import (
+        vif_features_cuda,
+        vif_features_plain,
+        vif_scale_cuda,
+        vif_scale_plain,
+        vif_tail_cuda,
+    )
+
+    ry, dy = (torch.from_numpy(a).to(dev) for a in (ref_np[0], dis_np[0]))
+    b, h, w = ry.shape
+    got, want = vif_scale_cuda(ry, dy, 0), vif_scale_plain(ry, dy, 0)
+    torch.cuda.synchronize()
+    check_close("vif_scale 0", got[0], want[0], rtol=VIF0_RTOL)
+    for i, key in ((1, "dec_ref"), (2, "dec_dis")):
+        check_close(f"vif_scale 0 {key}", got[i], want[i], rtol=PLANE_RTOL, atol=PLANE_ATOL)
+    errs = {"scale0": max_abs(got[0], want[0]), "dec": max(max_abs(got[i], want[i]) for i in (1, 2))}
+    rels = {"scale0": max_rel(got[0], want[0])}
+    del want
+    # Scales 1-3 chained on the kernel's own outputs.
+    r, d = got[1], got[2]
+    for scale in (1, 2, 3):
+        k, p = vif_scale_cuda(r, d, scale), vif_scale_plain(r, d, scale)
+        torch.cuda.synchronize()
+        check_close(f"vif_scale {scale}", k[0], p[0], rtol=VIF_TAIL_RTOL)
+        if scale < 3:
+            for i in (1, 2):
+                check_close(f"vif_scale {scale} planes", k[i], p[i], rtol=PLANE_RTOL, atol=PLANE_ATOL)
+        errs[f"scale{scale}"] = max_abs(k[0], p[0])
+        rels[f"scale{scale}"] = max_rel(k[0], p[0])
+        r, d = k[1], k[2]
+    del got, r, d, k, p
+    ms = cuda_ms(lambda: vif_scale_cuda(ry, dy, 0), 10)
+    plain_ms = cuda_ms(lambda: vif_scale_plain(ry, dy, 0), 2)
+    ms4 = cuda_ms(lambda: vif_features_cuda(ry, dy), 10)
+    plain4_ms = cuda_ms(lambda: vif_features_plain(ry, dy), 2)
+    mem = (peak_gib(lambda: vif_scale_cuda(ry, dy, 0)), peak_gib(lambda: vif_scale_plain(ry, dy, 0)))
+    work = vif_scale_work(b, h, w)
+    rec = record("vif_scale", "rtvqa_tpu_torch/csrc/vif.cu", "rtvqa_tpu/kernels/vif_pallas.py:583",
+                 max(errs.values()), ms, plain_ms, work)
+    print(f"vif_scale: {(b, h, w)} u8 pair, scale 0 then 1-3 chained: max abs errs {json.dumps(errs)}, "
+          f"rel {json.dumps(rels)}; scale 0 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (bound "
+          f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}); four scales kernel {ms4:.4f} ms, plain "
+          f"{plain4_ms:.4f} ms; peak scale 0 {mem[0]:.2f} vs {mem[1]:.2f} GiB")
+    del ry, dy
+    torch.cuda.empty_cache()
+
+    # At 1080p the chain shares its arithmetic with the fused kernel + tail.
+    planes = [torch.from_numpy(a).to(dev) for a in (*ref_1080, *dis_1080)]
+    blur = torch.zeros(planes[0].shape[1:], dtype=torch.float32, device=dev)
+    fq = quality_fused_cuda(*planes, blur)
+    fused = {"vif_scale0": fq["vif_scale0"], **vif_tail_cuda(fq["dec_ref"], fq["dec_dis"])}
+    chain = vif_features_cuda(planes[0], planes[3])
+    torch.cuda.synchronize()
+    rels = {}
+    for key, v in fused.items():
+        check_close(f"1080p chain {key}", chain[key], v, rtol=VIF0_RTOL if key == "vif_scale0" else VIF_TAIL_RTOL)
+        rels[key] = max_rel(chain[key], v)
+    print(f"vif_scale chain vs fused kernel + tail at {tuple(planes[0].shape)}: max rel {json.dumps(rels)}")
+    del planes, fq, fused, chain
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_wide_quality(dev, ref_np, dis_np) -> dict:
+    """The chunk loop over WIDE_N DCI-4K pairs (two chunks) on the kernels,
+    then on the plain versions. Returns the kernel run's launches."""
+    from rtvqa_tpu_torch.metrics.full_reference import auto_chunk
+
+    chunk = auto_chunk(WIDE_W, WIDE_H)
+    run_loop(dev, ref_np, dis_np, chunk, "kernel")  # warm-up
+    (s_k, pool_k, _), t_k, launches = counted_run(
+        quality_kernels(), lambda: run_loop(dev, ref_np, dis_np, chunk, "kernel"))
+    torch.cuda.empty_cache()
+    (s_p, pool_p, _), t_p = wall_s(lambda: run_loop(dev, ref_np, dis_np, chunk, "plain"))
+    torch.cuda.empty_cache()
+    check_quality("wide quality", WIDE_N, s_k, pool_k, s_p, pool_p)
+    n_chunks = WIDE_N // chunk
+    check_launches("wide quality", launches,
+                   {"vif_scale_cuda": 4 * n_chunks, "adm_scale_cuda": n_chunks, "adm_tail_cuda": n_chunks},
+                   {"quality_fused_cuda": 0, "vif_tail_cuda": 0})
+    mem = peak_gib(lambda: run_loop(dev, ref_np, dis_np, chunk, "kernel"))
+    print(f"wide_quality: {WIDE_N}x{WIDE_H}x{WIDE_W} in {n_chunks} chunks of {chunk}: kernel path "
+          f"{t_k:.4f} s, plain path {t_p:.4f} s; peak {mem:.2f} GiB (kernel path); launches {launches}; "
+          f"psnr {pool_k['psnr']:.6f} ssim {pool_k['ssim']:.6f} vmaf {pool_k['vmaf']:.6f} (plain "
+          f"{pool_p['psnr']:.6f} {pool_p['ssim']:.6f} {pool_p['vmaf']:.6f})")
+    profile_device("wide quality, kernel path", lambda: run_loop(dev, ref_np, dis_np, chunk, "kernel"), top=12)
     return launches
 
 
@@ -634,12 +850,24 @@ def main() -> int:
     quality_recs = phase_quality_kernels(dev, [a[first] for a in ref_np], [a[first] for a in dis_np])
     torch.cuda.empty_cache()
     phase_quality_oracle(dev)
-    launches = phase_quality(dev, ref_np, dis_np)
+    launches, series = phase_quality(dev, ref_np, dis_np)
     for rec, wrapper in zip(quality_recs, ("quality_fused_cuda", "vif_tail_cuda",
                                            "adm_scale_cuda", "adm_tail_cuda")):
         rec["launches"] = launches[wrapper]
+    torch.cuda.empty_cache()
+    phase_combined(dev, ref_np, dis_np, series)
+    torch.cuda.empty_cache()
+
+    wide_ref = make_frames(WIDE_N, WIDE_H, WIDE_W, SEED + 7)
+    wide_dis = distort(wide_ref, SEED + 8)
+    wide_chunk = slice(0, auto_chunk(WIDE_W, WIDE_H))
+    vif_rec = phase_vif_scale(dev, [a[wide_chunk] for a in wide_ref], [a[wide_chunk] for a in wide_dis],
+                              [a[first] for a in ref_np], [a[first] for a in dis_np])
+    del y_np, u_np, v_np, ref_np, dis_np
+    launches = phase_wide_quality(dev, wide_ref, wide_dis)
+    vif_rec["launches"] = launches["vif_scale_cuda"]
     print(smi)
-    print(json.dumps({"kernels": [gray_rec, motion_rec, *quality_recs]}))
+    print(json.dumps({"kernels": [gray_rec, motion_rec, *quality_recs, vif_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

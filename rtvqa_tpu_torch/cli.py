@@ -1,12 +1,13 @@
 """CLI entry point of the PyTorch port — the same UX as ``rtvqa_tpu.cli``:
 
-    python -m rtvqa_tpu_torch.cli <config.json> <input_video> [--json]
-    rtvqa-torch <config.json> <input_video> [--json]
+    python -m rtvqa_tpu_torch.cli <config.json> <input_video> [--sweep [CRF ...]] [--json]
+    rtvqa-torch <config.json> <input_video> [--sweep [CRF ...]] [--json]
 
 Runs on the card (``--device cuda``, the default; it raises without one);
-``--device cpu`` runs the plain PyTorch ops on the CPU. Single-clip mode
-only: ``--sweep``, ``--sharded`` and ``--trace`` are accepted for parity with
-the JAX CLI and refused, as they are not ported yet.
+``--device cpu`` runs the plain PyTorch ops on the CPU. ``--sweep`` runs the
+CRF ladder on that one device. ``--sharded`` (multi-GPU) and ``--trace``
+(device traces) are accepted for parity with the JAX CLI and refused, as
+they are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("config_file", type=str, help="Path to the configuration JSON file.")
     parser.add_argument("input_video", type=str, help="Path to the input video file.")
     parser.add_argument("--sweep", type=int, nargs="*", default=None, metavar="CRF",
-                        help="CRF-ladder sweep (not ported yet).")
+                        help="Run a CRF-ladder sweep instead of the single configured CRF. "
+                        "With no values, sweeps the default ladder (18/23/28/33).")
     parser.add_argument("--sharded", action="store_true",
                         help="Device-parallel sweep driver (not ported yet).")
     parser.add_argument("--trace", type=str, default=None, metavar="DIR",
@@ -35,10 +37,10 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="Where the metrics run (default: cuda; cpu only when asked).")
     parser.add_argument("--json", action="store_true",
-                        help="Emit one JSON line with the metrics row and the stage profile.")
+                        help="Emit one JSON line with the metrics row (or the sweep stats) "
+                        "and the stage profile.")
     args = parser.parse_args(argv)
-    for flag, given in (("--sweep", args.sweep is not None), ("--sharded", args.sharded),
-                        ("--trace", args.trace is not None)):
+    for flag, given in (("--sharded", args.sharded), ("--trace", args.trace is not None)):
         if given:
             raise NotImplementedError(f"{flag} is not ported to rtvqa_tpu_torch yet")
 
@@ -47,12 +49,20 @@ def main(argv: list[str] | None = None) -> int:
     config = load_config(args.config_file)
     timer = StageTimer()
     try:
-        from rtvqa_tpu_torch.pipeline.analyzer import process_video_and_extract_metrics
+        if args.sweep is not None:
+            from rtvqa_tpu_torch.pipeline.sweep import DEFAULT_CRF_LADDER, run_sweep
 
-        result = process_video_and_extract_metrics(
-            args.input_video, config, timer=timer, device=args.device
-        )
-        timer.log_summary()
+            # A bare --sweep means the default ladder, not a single-CRF run.
+            ladder = tuple(args.sweep) or DEFAULT_CRF_LADDER
+            result = run_sweep([args.input_video], config, crf_ladder=ladder, device=args.device)
+        else:
+            from rtvqa_tpu_torch.pipeline.analyzer import process_video_and_extract_metrics
+
+            result = process_video_and_extract_metrics(
+                args.input_video, config, timer=timer, device=args.device
+            )
+        if timer.totals:
+            timer.log_summary()
         if args.json:
             print(json.dumps({"metrics": result, "profile": timer.summary()}, default=float))
         logger.info("Processing completed successfully.")

@@ -139,6 +139,10 @@ def load_library() -> ctypes.CDLL:
         lib.rtvqa_vif_tail_scratch_doubles.restype = i64
         lib.rtvqa_vif_tail.argtypes = [ptr, ptr] + [i32] * 3 + [ptr] * 3 + [f32, i32] + [ptr] * 4
         lib.rtvqa_vif_tail.restype = i32
+        lib.rtvqa_vif_scale_scratch.argtypes = [i32] * 3
+        lib.rtvqa_vif_scale_scratch.restype = i64
+        lib.rtvqa_vif_scale.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 2 + [f32, i32] + [ptr] * 5
+        lib.rtvqa_vif_scale.restype = i32
         lib.rtvqa_adm_scratch.argtypes = [i32] * 3
         lib.rtvqa_adm_scratch.restype = i64
         lib.rtvqa_adm_scale.argtypes = (

@@ -145,6 +145,28 @@ class ComplexitySuite(nn.Module):
             motion = full_search(gray[:-1], gray[1:], block=self.block, radius=self.radius)
         return gray, motion
 
+    def series(self, y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Per-frame values of the (M, H, W) YUV420 series ``y, u, v``, each
+        (M-1,): slot j holds frame j+1 against frame j (motion, temporal
+        DCT) or frame j+1 alone (DCT energy, gray entropy, edges, ORB,
+        color entropy). The counterpart of ``rtvqa_tpu/parallel/
+        sharding.py::_per_frame_values_series``; ``forward`` smooths these
+        series and the streaming accumulator gathers them."""
+        gray, motion = self._gray_and_motion(y, u, v)
+        gray_rs_all = _resize(gray, self.rh, self.rw)
+        gray_rs = gray_rs_all[1:]
+        return {
+            "motion": motion,
+            "dct": dct_energy(gray_rs),
+            "histogram": gray_entropy(gray_rs),
+            "edge": canny_edge_count(gray_rs, self.edge_low, self.edge_high),
+            "orb": orb_keypoint_count(_resize(gray[1:], self.orb_rh, self.orb_rw)),
+            "color": color_entropy_sampled(
+                y[1:], u[1:], v[1:], self.resize_h, self.resize_w, rw=self.rw
+            ),
+            "temporal_dct": temporal_dct_abs_diff(gray_rs_all[:-1], gray_rs, self.dct_h, self.dct_w),
+        }
+
     def forward(
         self,
         y: torch.Tensor,              # (N, H, W) uint8 sampled luma
@@ -156,33 +178,18 @@ class ComplexitySuite(nn.Module):
         """The 8 smoothed-mean scalars keyed by metric name."""
         n_pad = y.shape[0]
         idx = torch.arange(n_pad, device=y.device)
-        gray_full, motion_series = self._gray_and_motion(y, u, v)
-        curr_g = gray_full[1:]
+        s = self.series(y, u, v)
         pair_valid = idx[1:] < n_valid
-
-        gray_rs = _resize(curr_g, self.rh, self.rw)
-        dct_series = dct_energy(gray_rs)
-        hist_series = gray_entropy(gray_rs)
-        edge_series = canny_edge_count(gray_rs, self.edge_low, self.edge_high)
-        orb_series = orb_keypoint_count(_resize(curr_g, self.orb_rh, self.orb_rw))
-        color_series = color_entropy_sampled(
-            y[1:], u[1:], v[1:], self.resize_h, self.resize_w, rw=self.rw
-        )
-        tdct_series = temporal_dct_abs_diff(gray_rs[:-1], gray_rs[1:], self.dct_h, self.dct_w)
         tdct_valid = idx[2:] < n_valid
         fps_series, fps_valid = fps_variation(timestamps_ms, idx < n_valid)
 
         a = self.alpha
-        return {
-            "motion": _smoothed_masked_mean(motion_series, pair_valid, a),
-            "dct": _smoothed_masked_mean(dct_series, pair_valid, a),
-            "histogram": _smoothed_masked_mean(hist_series, pair_valid, a),
-            "edge": _smoothed_masked_mean(edge_series, pair_valid, a),
-            "orb": _smoothed_masked_mean(orb_series, pair_valid, a),
-            "color": _smoothed_masked_mean(color_series, pair_valid, a),
-            "temporal_dct": _smoothed_masked_mean(tdct_series, tdct_valid, a),
-            "framerate": _smoothed_masked_mean(fps_series, fps_valid, a),
-        }
+        out = {k: _smoothed_masked_mean(s[k], pair_valid, a)
+               for k in ("motion", "dct", "histogram", "edge", "orb", "color")}
+        # Temporal DCT pairs consecutive frames of s[1:]: slots 1.. of its series.
+        out["temporal_dct"] = _smoothed_masked_mean(s["temporal_dct"][1:], tdct_valid, a)
+        out["framerate"] = _smoothed_masked_mean(fps_series, fps_valid, a)
+        return out
 
 
 def complexity_suite(

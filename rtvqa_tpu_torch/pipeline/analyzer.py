@@ -2,22 +2,24 @@
 (counterpart of ``rtvqa_tpu/pipeline/analyzer.py``).
 
 The clip is transcoded at the configured CRF/preset and the original is
-probed. With ``quality_backend: "native"`` both streams are decoded once in
-lockstep and PSNR/SSIM/VMAF run over every frame at full resolution
-(``metrics.full_reference.analyze_full_reference``). Then the analyzed clip
-(the encoded one, or the original with ``analyze_original``) is decoded at
-``frame_interval`` and the eight-metric complexity suite runs. The CSV row
-carries the same 15 columns as the JAX package's.
+probed. Then, as in the JAX package:
 
-Ported routes: ``quality_backend: "none"``, and ``"native"`` with
-``"streaming_complexity": false`` (quality, then the separate complexity
-pass). Refused before any work rather than silently degraded: the combined
-quality+complexity engine that ``"native"`` takes when
-``streaming_complexity`` is null or true (ROADMAP.md queue A, item 3), and
-streaming complexity on its own.
+* ``quality_backend: "native"`` with ``streaming_complexity`` null or true
+  (the default config): the combined engine
+  (``metrics.full_reference.analyze_combined``) decodes both streams once in
+  lockstep, runs PSNR/SSIM/VMAF over every frame at full resolution and
+  taps every ``frame_interval``-th frame of the analyzed clip (the encoded
+  one, or the original with ``analyze_original``) into the streaming
+  complexity accumulator;
+* otherwise (``"none"``, or ``"native"`` with ``streaming_complexity:
+  false``: quality first) the complexity pass runs on its own, streaming
+  when ``streaming_complexity`` is true or null on a file over 256 MB, else
+  on the whole sampled clip. It also runs when the combined engine saw no
+  frame pair.
 
-Unlike the JAX package, a quality failure is not downgraded to a warning
-and empty cells: a kernel that fails to build or launch fails the run.
+The CSV row carries the same 15 columns as the JAX package's. Unlike the
+JAX package, a quality failure is not downgraded to a warning and empty
+cells: a kernel that fails to build or launch fails the run.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ from rtvqa_tpu_torch.config import Config
 from rtvqa_tpu_torch.device import get_device
 from rtvqa_tpu_torch.io import video as vio
 from rtvqa_tpu_torch.metrics.complexity import calculate_average_scene_complexity
+from rtvqa_tpu_torch.metrics.complexity_streaming import (
+    calculate_average_scene_complexity_streaming,
+)
+from rtvqa_tpu_torch.metrics.full_reference import analyze_combined, analyze_full_reference
 from rtvqa_tpu_torch.obs.logging import get_logger
 from rtvqa_tpu_torch.obs.profiler import StageTimer
 from rtvqa_tpu_torch.pipeline.csv_sink import update_csv
@@ -40,31 +46,6 @@ from rtvqa_tpu_torch.pipeline.csv_sink import update_csv
 logger = get_logger("rtvqa_tpu_torch.pipeline")
 
 STREAMING_AUTO_BYTES = 256 * 1024 * 1024
-
-
-def _refuse_combined(config: Config) -> None:
-    """Raise if this run would take the combined quality+complexity engine."""
-    if config.quality_backend == "native" and config.streaming_complexity is not False:
-        raise NotImplementedError(
-            "quality_backend 'native' with streaming_complexity null or true runs the "
-            "combined quality+complexity engine (analyze_combined), not ported to "
-            "rtvqa_tpu_torch yet: ROADMAP.md queue A, item 3. Set "
-            "\"streaming_complexity\": false for the quality pass followed by the "
-            "complexity pass, or \"quality_backend\": \"none\"."
-        )
-
-
-def _refuse_streaming(path: str, config: Config) -> None:
-    """Raise if the complexity pass over ``path`` would stream."""
-    use = config.streaming_complexity
-    if use is None:
-        use = os.path.getsize(path) > STREAMING_AUTO_BYTES
-    if use:
-        raise NotImplementedError(
-            "streaming complexity (streaming_complexity=true, or auto on a file "
-            "over 256 MB) is not ported to rtvqa_tpu_torch yet: ROADMAP.md queue "
-            "A, item 3 (chunk drivers / streaming)"
-        )
 
 
 def analyze_video(
@@ -77,9 +58,6 @@ def analyze_video(
     returns the CSV-row metrics dict."""
     if not os.path.isfile(input_video):
         raise FileNotFoundError(f"The input video file {input_video} does not exist.")
-    _refuse_combined(config)
-    if config.streaming_complexity is True or config.analyze_original:
-        _refuse_streaming(input_video, config)
     dev = get_device(device)
 
     own_timer = timer is None
@@ -99,20 +77,38 @@ def analyze_video(
             "CRF": config.crf,
         }
 
+        comp = None
         if config.quality_backend == "native":
-            from rtvqa_tpu_torch.metrics.full_reference import analyze_full_reference
-
             logger.info("Computing native PSNR/SSIM/VMAF (full-res, every frame)")
-            with timer.stage("quality"):
-                qual = analyze_full_reference(
-                    input_video,
-                    encoded_video,
-                    vmaf_model_path=config.vmaf_model_path,
-                    quality_precision=config.quality_precision,
-                    device=dev,
-                )
+            if config.streaming_complexity is not False:
+                with timer.stage("quality+complexity"):
+                    qual, comp = analyze_combined(
+                        input_video,
+                        encoded_video,
+                        frame_interval=config.frame_interval,
+                        resize_width=config.resize_width,
+                        resize_height=config.resize_height,
+                        smoothing_factor=config.smoothing_alpha,
+                        complexity_chunk=config.batch_size,
+                        complexity_on="ref" if config.analyze_original else "dis",
+                        vmaf_model_path=config.vmaf_model_path,
+                        quality_precision=config.quality_precision,
+                        motion_search=config.motion_search,
+                        device=dev,
+                    )
+            else:
+                with timer.stage("quality"):
+                    qual = analyze_full_reference(
+                        input_video,
+                        encoded_video,
+                        vmaf_model_path=config.vmaf_model_path,
+                        quality_precision=config.quality_precision,
+                        device=dev,
+                    )
             timer.add_frames(int(qual["n_frames"]))
-            if qual["n_frames"] > 0:
+            if qual["n_frames"] == 0:
+                comp = None  # no frame pair: the separate complexity pass below
+            else:
                 metrics["PSNR"] = qual["psnr"]
                 metrics["SSIM"] = qual["ssim"]
                 if not qual["vmaf_is_fallback"] or config.allow_builtin_vmaf:
@@ -124,23 +120,39 @@ def analyze_video(
                         "for the qualitative builtin fallback."
                     )
 
-        target = input_video if config.analyze_original else encoded_video
-        _refuse_streaming(target, config)
-        logger.info("Calculating scene complexity after encoding...")
-        with timer.stage("decode"):
-            clip = vio.decode_sampled(
-                target, frame_interval=config.frame_interval, threads=config.num_workers
-            )
-        timer.add_frames(int(clip.y.shape[0]))
-        with timer.stage("complexity"):
-            comp = calculate_average_scene_complexity(
-                clip,
-                resize_width=config.resize_width,
-                resize_height=config.resize_height,
-                smoothing_factor=config.smoothing_alpha,
-                motion_search=config.motion_search,
-                device=dev,
-            )
+        if comp is None:
+            target = input_video if config.analyze_original else encoded_video
+            logger.info("Calculating scene complexity after encoding...")
+            use_streaming = config.streaming_complexity
+            if use_streaming is None:  # auto: stream when the file is large
+                use_streaming = os.path.getsize(target) > STREAMING_AUTO_BYTES
+            if use_streaming:
+                with timer.stage("complexity"):
+                    comp = calculate_average_scene_complexity_streaming(
+                        target,
+                        resize_width=config.resize_width,
+                        resize_height=config.resize_height,
+                        frame_interval=config.frame_interval,
+                        smoothing_factor=config.smoothing_alpha,
+                        chunk=config.batch_size,
+                        motion_search=config.motion_search,
+                        device=dev,
+                    )
+            else:
+                with timer.stage("decode"):
+                    clip = vio.decode_sampled(
+                        target, frame_interval=config.frame_interval, threads=config.num_workers
+                    )
+                timer.add_frames(int(clip.y.shape[0]))
+                with timer.stage("complexity"):
+                    comp = calculate_average_scene_complexity(
+                        clip,
+                        resize_width=config.resize_width,
+                        resize_height=config.resize_height,
+                        smoothing_factor=config.smoothing_alpha,
+                        motion_search=config.motion_search,
+                        device=dev,
+                    )
 
         # Each complexity column holds the metric its header names.
         metrics.update(

@@ -12,7 +12,9 @@ ops, so it is exact in practice); motion rel 5e-3 on smooth frames
 a static scene. Quality kernels, those of the JAX package's own kernel
 tests: SSEs equal (integer sums); SSIM means abs 2e-6; VIF scale 0 rel
 2e-4; SAD rel 1e-5 / abs 1e-5; blur carry abs 1e-4; decimated planes rel
-1e-4 / abs 1e-3; VIF scales 1-3 rel 3e-4; ADM num/den rel 2e-4, the
+1e-4 / abs 1e-3; VIF scales 1-3 rel 3e-4 (kernel 4, VIF at one scale:
+rel 2e-4 at scale 0, 3e-4 after, its planes as the decimated ones); ADM
+num/den rel 2e-4, the
 approximation bands rel 1e-4 / abs 1e-3, adm2 rel 3e-4. The kernels sum
 per tile in float64 where the plain ops sum in f32, so the sums differ by
 f32 rounding; repeat runs of a kernel are bit-identical.
@@ -240,3 +242,62 @@ def test_quality_chunk_kernel_body_matches_plain(dev):
         tol = 1e-6 if key.startswith(("mse", "psnr")) else 3e-4
         assert _rel(got[i], want[i]) < tol, key
     torch.testing.assert_close(blur_k, blur_p, rtol=0, atol=1e-4)
+
+
+VIF_SCALE_SHAPES = [(3, 48, 64), (2, 53, 71), (2, 2160, 4096)]
+
+
+@pytest.mark.parametrize("b,h,w", VIF_SCALE_SHAPES)
+@pytest.mark.parametrize("scale", [0, 1, 2, 3])
+@pytest.mark.parametrize("egl", [None, 1.0])
+def test_vif_scale_kernel_matches_plain(dev, b, h, w, scale, egl):
+    """Kernel 4 per scale, on the u8 pair and on its f32 copy; repeat runs
+    are bit-identical."""
+    from rtvqa_tpu_torch.kernels.vif import vif_scale_cuda, vif_scale_plain
+
+    x = _quality_inputs(np.random.default_rng(10 + scale), b, h, w, dev)
+    for ref, dis in ((x[0], x[3]), (x[0].float(), x[3].float())):
+        before = vif_scale_cuda.launches
+        got = vif_scale_cuda(ref, dis, scale, egl)
+        again = vif_scale_cuda(ref, dis, scale, egl)
+        torch.cuda.synchronize()
+        assert vif_scale_cuda.launches == before + 2
+        want = vif_scale_plain(ref, dis, scale, egl)
+        assert _rel(got[0], want[0]) < (2e-4 if scale == 0 else 3e-4)
+        assert torch.equal(got[0], again[0])
+        if scale == 3:
+            assert got[1] is None and got[2] is None
+            continue
+        for g, a, p in zip(got[1:], again[1:], want[1:]):
+            assert g.shape == (b, (h + 1) // 2, (w + 1) // 2)
+            torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-3)
+            assert torch.equal(g, a)
+
+
+def test_vif_features_kernel_identity(dev):
+    """Identical ref and dis: VIF 1 at every scale of the four-scale chain."""
+    from rtvqa_tpu_torch.kernels.vif import vif_features_cuda
+
+    y = _quality_inputs(np.random.default_rng(12), 2, 72, 96, dev)[0]
+    for v in vif_features_cuda(y, y).values():
+        torch.testing.assert_close(v, torch.ones_like(v), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 40, 3856), (2, 2160, 4096)])
+def test_wide_chunk_kernel_body_matches_plain(dev, b, h, w):
+    """Frames wider than 3840: the wide route (plain program A, kernel 4
+    over four scales, ADM scale 0 + chain) against the plain chunk."""
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
+    from rtvqa_tpu_torch.kernels.vif import vif_scale_cuda
+    from rtvqa_tpu_torch.metrics.full_reference import CHUNK_KEYS, chunk_kernels, chunk_plain
+
+    x = _quality_inputs(np.random.default_rng(13), b, h, w, dev)
+    before = quality_fused_cuda.launches, vif_scale_cuda.launches
+    got, blur_k = chunk_kernels(*x, True)
+    torch.cuda.synchronize()
+    assert (quality_fused_cuda.launches, vif_scale_cuda.launches) == (before[0], before[1] + 4)
+    want, blur_p = chunk_plain(*x, True)
+    for i, key in enumerate(CHUNK_KEYS):
+        tol = 1e-6 if key.startswith(("mse", "psnr")) else 3e-4
+        assert _rel(got[i], want[i]) < tol, key
+    assert torch.equal(blur_k, blur_p)

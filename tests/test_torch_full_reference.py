@@ -7,6 +7,10 @@
 * the streaming chunk loop over an encoded clip pair, three chunks with a
   ragged tail, against the JAX engine, and against one single chunk (the
   blur carry across chunk boundaries);
+* the wide route (w > 3840: plain program A, VIF through kernel 4's
+  wrapper, ADM through the scale chain) against ``chunk_plain``;
+* the combined engine (``analyze_combined``) and the streaming complexity
+  accumulator against the JAX package's on an encoded 64x96 clip;
 * pooling, precision and chunk-size rules;
 * the frozen 1080p real-content goldens.
 
@@ -15,7 +19,11 @@ final division); motion SADs rel 1e-5; VIF/ADM rel 1e-4 against the JAX
 plain ops and rel 3e-4 against the Pallas kernels; pooled PSNR/SSIM rel
 1e-6, VMAF rel 1e-5 (per frame 1e-4, as the VIF/ADM it is made of). The
 goldens are held to the JAX test's rtol 1e-5 / atol 1e-6 (vif_scale0: see
-the test).
+the test). Complexity against the JAX package: rel 1e-4, motion and edge
+rel 5e-3, as tests/test_torch_pipeline.py holds the CSV rows (the JAX
+suite's fused gray conversion rounds with FMAs, which moves gray entropy
+by 4e-5 on the 64x96 clip here, in the suite as in the accumulator); the
+port's accumulator against the port's own suite rel 1e-6.
 """
 
 import numpy as np
@@ -23,8 +31,11 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from rtvqa_tpu.metrics import complexity_streaming as jcs
 from rtvqa_tpu.metrics import full_reference as jfr
 from rtvqa_tpu.vmaf import model as jmodel
+from rtvqa_tpu_torch.metrics import complexity_streaming as tcs
+from rtvqa_tpu_torch.metrics.complexity import calculate_average_scene_complexity
 from rtvqa_tpu_torch.metrics import full_reference as tfr
 from tests.test_torch_quality import _svr_model_json, content_pair, rel_err, t
 
@@ -83,11 +94,24 @@ def test_chunk_kernel_body_matches_jax_fused(rng, shape, has_prev, egl):
     np.testing.assert_allclose(blur.numpy(), np.asarray(jblur), rtol=1e-5, atol=1e-4)
 
 
-def test_chunk_kernels_refuse_wide_frames():
-    y = torch.zeros((1, 2, 3841), dtype=torch.uint8)
-    c = torch.zeros((1, 1, 1921), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfr.chunk_kernels(y, c, c, y, c, c, torch.zeros(2, 3841), True)
+def test_chunk_kernels_refuse_wide_frames(rng, monkeypatch):
+    """Frames wider than 3840 no longer raise: they take the wide route
+    (plain program A, ``vif_features_cuda``, ADM scale 0 + chain), never the
+    fused kernel, and equal ``chunk_plain``."""
+    calls = []
+    real_vif = tfr.vif_features_cuda
+    monkeypatch.setattr(tfr, "vif_features_cuda", lambda *a, **k: calls.append(1) or real_vif(*a, **k))
+
+    def no_fused(*a, **k):
+        raise AssertionError("the fused quality kernel must not run above 3840")
+
+    monkeypatch.setattr(tfr, "quality_fused_cuda", no_fused)
+    planes, prev_blur = chunk_inputs(rng, 2, 18, 3856)
+    got, blur = tfr.chunk_kernels(*map(t, planes), t(prev_blur), True)
+    want, blur_p = tfr.chunk_plain(*map(t, planes), t(prev_blur), True)
+    assert calls == [1]
+    check_packed(got.numpy(), want.numpy(), 1e-5)
+    assert torch.equal(blur, blur_p)
 
 
 @pytest.fixture(scope="module")
@@ -134,6 +158,98 @@ def test_chunk_loop_carries_blur_across_chunks(clip_pair):
     for key in whole:
         assert len(chunked[key]) == n, key
         np.testing.assert_allclose(chunked[key], whole[key], rtol=1e-6, atol=1e-6, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def small_pair(tmp_path_factory):
+    """A 13-frame 64x96 moving-texture clip, encoded at CRF 14 (ref) and
+    re-encoded at CRF 36 (dis)."""
+    from fractions import Fraction
+
+    from rtvqa_tpu_torch.io import video as vio
+
+    d = tmp_path_factory.mktemp("combined_clip")
+    rng = np.random.default_rng(23)
+    n, h, w = 13, 64, 96
+    tex, _ = content_pair(rng, 1, h + 32, w + 32)
+    y = np.stack([np.roll(tex[0], (i, -2 * i), (0, 1))[:h, :w] for i in range(n)])
+    u = rng.integers(80, 180, (n, h // 2, w // 2), np.uint8)
+    v = rng.integers(80, 180, (n, h // 2, w // 2), np.uint8)
+    ref, dis = str(d / "ref.mp4"), str(d / "dis.mp4")
+    vio.encode_raw_yuv420(ref, y, u, v, fps=Fraction(25, 1), crf=14, preset="veryfast")
+    vio.transcode(ref, dis, crf=36, preset="veryfast")
+    return ref, dis, n
+
+
+def check_complexity(got, want, rtol=1e-4, decision_rtol=5e-3):
+    for field in ("motion", "dct", "histogram", "edge", "orb", "color", "temporal_dct", "framerate"):
+        tol = decision_rtol if field in ("motion", "edge") else rtol
+        assert getattr(got, field) == pytest.approx(getattr(want, field), rel=tol, abs=1e-9), field
+    assert got.motion > 0 and got.framerate > 0
+
+
+@pytest.mark.parametrize("interval,on", [(1, "dis"), (3, "dis"), (3, "ref")])
+def test_analyze_combined_matches_jax(small_pair, interval, on):
+    ref, dis, n = small_pair
+    kw = dict(frame_interval=interval, resize_width=32, resize_height=32, complexity_chunk=4,
+              complexity_on=on, chunk=4)
+    jq, jc = jfr.analyze_combined(ref, dis, **kw)
+    tq, tc = tfr.analyze_combined(ref, dis, **kw, device="cpu")
+    assert tq["n_frames"] == jq["n_frames"] == n
+    for key in ("psnr", "ssim", "vmaf"):
+        assert tq[key] == pytest.approx(jq[key], rel=1e-5), key
+    for key, w in jq["per_frame"].items():
+        tol = 1e-4 if key in VQ_KEYS + ("vmaf",) else 1e-5
+        np.testing.assert_allclose(tq["per_frame"][key], np.asarray(w), rtol=tol, atol=1e-6, err_msg=key)
+    check_complexity(tc, jc)
+    # The tap leaves the quality series as they are without it.
+    alone = tfr.analyze_full_reference(ref, dis, chunk=4, device="cpu")
+    for key, w in alone["per_frame"].items():
+        np.testing.assert_array_equal(tq["per_frame"][key], w, err_msg=key)
+
+
+def test_analyze_combined_merged_refusals(small_pair):
+    ref, dis, _ = small_pair
+    for mod in (jfr, tfr):
+        with pytest.raises(ValueError, match="frame_interval=1"):
+            mod.analyze_combined(ref, dis, frame_interval=3, merged=True)
+    with pytest.raises(NotImplementedError, match="merged=True"):
+        tfr.analyze_combined(ref, dis, frame_interval=1, merged=True, device="cpu")
+
+
+@pytest.mark.parametrize("cchunk,schunk", [(5, 3), (128, 32)])
+def test_streaming_complexity_matches_jax(small_pair, cchunk, schunk):
+    """The port's accumulator (fed in uneven batches) and streaming driver
+    against the JAX package's, each with the other chunking."""
+    from rtvqa_tpu_torch.io import video as vio
+
+    _, dis, _ = small_pair
+    kw = dict(resize_width=32, resize_height=32, frame_interval=1)
+    want = jcs.calculate_average_scene_complexity_streaming(dis, chunk=cchunk, **kw)
+    check_complexity(tcs.calculate_average_scene_complexity_streaming(dis, chunk=schunk, **kw,
+                                                                      device="cpu"), want)
+    clip = vio.decode_sampled(dis, frame_interval=1)
+    jacc = jcs.ComplexityAccumulator(32, 32, chunk=schunk)
+    tacc = tcs.ComplexityAccumulator(32, 32, chunk=cchunk, device="cpu")
+    for lo, hi in ((0, 2), (2, 9), (9, len(clip.y))):
+        for acc in (jacc, tacc):
+            acc.add(clip.y[lo:hi], clip.u[lo:hi], clip.v[lo:hi], clip.timestamps_ms[lo:hi])
+    got = tacc.finalize()
+    check_complexity(got, jacc.finalize())
+    whole = calculate_average_scene_complexity(clip, 32, 32, device="cpu")
+    check_complexity(got, whole, rtol=1e-6, decision_rtol=1e-6)
+
+
+def test_accumulator_add_packed_rules():
+    acc = tcs.ComplexityAccumulator(32, 32, chunk=4, device="cpu")
+    rows = np.arange(len(tcs.VALUE_KEYS) * 3, dtype=np.float32).reshape(len(tcs.VALUE_KEYS), 3)
+    acc.add_packed(rows, np.array([0.0, 40.0, 80.0]))
+    assert acc.n_total == 3
+    y = np.zeros((1, 16, 16), np.uint8)
+    acc.add(y, y[:, :8, :8], y[:, :8, :8], np.array([120.0]))
+    with pytest.raises(RuntimeError, match="mixed"):
+        acc.add_packed(rows, np.array([160.0]))
+    assert tcs.VALUE_KEYS == jcs.VALUE_KEYS
 
 
 def test_analyze_full_reference_routes(clip_pair):

@@ -1,11 +1,12 @@
-"""The port's CLI and analyzer vs the JAX package's on the same encoded clip,
-plus the routes the port refuses, the device rule (the card unless the CPU
-is asked for) and proof that it never imports jax or the JAX package.
+"""The port's CLI, analyzer and sweep vs the JAX package's on the same
+encoded clip, plus the routes the port still refuses, the device rule (the
+card unless the CPU is asked for) and proof that it never imports jax or
+the JAX package.
 
 The CSV rows must agree column by column: the identity columns exactly, the
 complexity columns within the suite tolerances (rel 1e-4; motion rel 5e-3,
 docs/PARITY.md motion row), the quality cells empty in both on the
-``"none"`` route and within rel 1e-4 on the ``"native"`` route (VMAF from
+``"none"`` route and within rel 1e-4 on the ``"native"`` routes (VMAF from
 the builtin model, as ``allow_builtin_vmaf`` asks). The edge column
 is an integer count of per-pixel decisions on f32 gray: inside its fused
 program XLA contracts the gray conversion into FMAs (on this clip 8.5k of
@@ -26,6 +27,7 @@ import pytest
 import torch
 
 from rtvqa_tpu.io import video as vio
+from rtvqa_tpu.config import Config as JaxConfig
 from rtvqa_tpu.pipeline.csv_sink import CSV_COLUMNS, read_rows
 from rtvqa_tpu_torch.config import Config
 
@@ -63,8 +65,14 @@ def env(tmp_path_factory):
     return {"clip": clip, "dir": d, "csv": paths}
 
 
-def _compare_rows(jrow, trow):
+def _compare_rows(jrow, trow, quality=False):
     assert list(trow) == CSV_COLUMNS
+    for col in QUALITY_COLUMNS:
+        if quality:
+            assert jrow[col] != "", col
+            assert float(trow[col]) == pytest.approx(float(jrow[col]), rel=1e-4), col
+        else:
+            assert trow[col] == jrow[col] == "", col
     for col in IDENTITY_COLUMNS:
         assert trow[col] == jrow[col], col
     decision_counts = ("Advanced Motion Complexity", "Edge Detection Complexity")
@@ -82,8 +90,6 @@ def test_cli_row_matches_jax_cli(env):
     assert jax_main([str(d / "jax.json"), env["clip"]]) == 0
     assert torch_main([str(d / "torch.json"), env["clip"], "--device", "cpu"]) == 0
     (jrow,), (trow,) = read_rows(env["csv"]["jax"]), read_rows(env["csv"]["torch"])
-    for col in QUALITY_COLUMNS:
-        assert trow[col] == jrow[col] == "", col
     _compare_rows(jrow, trow)
 
 
@@ -97,11 +103,8 @@ def test_cli_native_row_matches_jax_cli(env):
     assert jax_main([str(d / "jax_native.json"), env["clip"]]) == 0
     assert torch_main([str(d / "torch_native.json"), env["clip"], "--device", "cpu"]) == 0
     (jrow,), (trow,) = read_rows(env["csv"]["jax_native"]), read_rows(env["csv"]["torch_native"])
-    for col in QUALITY_COLUMNS:
-        assert jrow[col] != "", col
-        assert float(trow[col]) == pytest.approx(float(jrow[col]), rel=1e-4), col
     assert 20 < float(trow["PSNR"]) < 60 and 0.5 < float(trow["SSIM"]) <= 1.0
-    _compare_rows(jrow, trow)
+    _compare_rows(jrow, trow, quality=True)
 
 
 def test_cli_json_line(env, capsys):
@@ -114,40 +117,89 @@ def test_cli_json_line(env, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--sweep"], ["--sweep", "18", "28"], ["--sharded"], ["--trace", "t"]])
-def test_cli_refuses_unported_modes(env, flag):
+def test_cli_refuses_unported_modes(env, tmp_path, capsys, flag):
+    """``--sharded`` and ``--trace`` are still refused. ``--sweep`` runs the
+    CRF ladder (the default one when bare): its rows and manifest equal
+    ``rtvqa_tpu.pipeline.sweep.run_sweep``'s, and a rerun skips every item."""
+    from rtvqa_tpu.pipeline.sweep import DEFAULT_CRF_LADDER, run_sweep
     from rtvqa_tpu_torch.cli import main as torch_main
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        torch_main([str(env["dir"] / "torch.json"), env["clip"], *flag])
+    if flag[0] != "--sweep":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            torch_main([str(env["dir"] / "torch.json"), env["clip"], *flag])
+        return
+    ladder = tuple(int(c) for c in flag[1:]) or DEFAULT_CRF_LADDER
+    cfg = {"resize_width": 32, "resize_height": 32, "frame_interval": 3, "quality_backend": "none",
+           "preset": "ultrafast"}
+    t_csv, j_csv = str(tmp_path / "torch.csv"), str(tmp_path / "jax.csv")
+    with open(tmp_path / "sweep.json", "w") as f:
+        json.dump({**cfg, "csv_file": t_csv}, f)
+    argv = [str(tmp_path / "sweep.json"), env["clip"], *flag, "--device", "cpu", "--json"]
+    assert torch_main(argv) == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["metrics"]
+    assert stats == run_sweep([env["clip"]], JaxConfig(**cfg, csv_file=j_csv), crf_ladder=ladder)
+    assert stats == {"done": len(ladder), "failed": 0, "skipped": 0}
+    trows, jrows = read_rows(t_csv), read_rows(j_csv)
+    assert [r["CRF"] for r in trows] == [str(c) for c in ladder]
+    for jrow, trow in zip(jrows, trows, strict=True):
+        _compare_rows(jrow, trow)
+
+    def manifest(path):
+        with open(path + ".manifest.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    assert manifest(t_csv) == manifest(j_csv)
+    assert torch_main(argv) == 0  # resume: every item is done already
+    rerun = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["metrics"]
+    assert rerun == {"done": 0, "failed": 0, "skipped": len(ladder)}
+    assert len(read_rows(t_csv)) == len(ladder) and manifest(t_csv) == manifest(j_csv)
 
 
 @pytest.mark.parametrize(
-    "overrides,match",
+    "overrides",
     [
-        ({}, "quality_backend 'native'.*ROADMAP.md queue A, item 3"),  # the default config
-        ({"quality_backend": "native", "streaming_complexity": True}, "analyze_combined"),
-        ({"quality_backend": "none", "streaming_complexity": True}, "streaming"),
-        ({"quality_backend": "none", "streaming_complexity": True,
-          "analyze_original": True}, "streaming"),
+        {},  # the default config: the combined engine
+        {"quality_backend": "native", "streaming_complexity": True},  # combined
+        {"quality_backend": "none", "streaming_complexity": True},  # streaming pass
+        {"quality_backend": "none", "streaming_complexity": True, "analyze_original": True},
     ],
 )
-def test_analyzer_refuses_unported_routes_before_encoding(env, monkeypatch, overrides, match):
+def test_analyzer_refuses_unported_routes_before_encoding(env, tmp_path, overrides):
+    """Every analyzer route runs on the port: for each of these configs the
+    port's CSV row equals the JAX analyzer's."""
+    from rtvqa_tpu.pipeline import analyzer as janalyzer
     from rtvqa_tpu_torch.pipeline import analyzer
 
-    def no_encode(*a, **k):
-        raise AssertionError("transcode must not run for a refused route")
+    base = {"crf": 20, "resize_width": 32, "resize_height": 32, "frame_interval": 3,
+            "allow_builtin_vmaf": True, "preset": "ultrafast", **overrides}
+    t_csv, j_csv = str(tmp_path / "torch.csv"), str(tmp_path / "jax.csv")
+    janalyzer.process_video_and_extract_metrics(env["clip"], JaxConfig(**base, csv_file=j_csv))
+    analyzer.process_video_and_extract_metrics(env["clip"], Config(**base, csv_file=t_csv), device="cpu")
+    (jrow,), (trow,) = read_rows(j_csv), read_rows(t_csv)
+    _compare_rows(jrow, trow, quality=base.get("quality_backend", "native") == "native")
 
-    monkeypatch.setattr(analyzer.vio, "transcode", no_encode)
-    with pytest.raises(NotImplementedError, match=match):
-        analyzer.analyze_video(env["clip"], Config(**overrides))
 
-
-def test_analyzer_refuses_auto_streaming_on_large_files(env, monkeypatch):
+def test_analyzer_refuses_auto_streaming_on_large_files(env, tmp_path, monkeypatch):
+    """Auto streaming (``streaming_complexity`` null on a file over the
+    threshold) takes the streaming pass, whose row equals the JAX
+    analyzer's streaming row."""
+    from rtvqa_tpu.pipeline import analyzer as janalyzer
     from rtvqa_tpu_torch.pipeline import analyzer
 
+    calls = []
+    real = analyzer.calculate_average_scene_complexity_streaming
     monkeypatch.setattr(analyzer, "STREAMING_AUTO_BYTES", 16)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        analyzer.analyze_video(env["clip"], Config(quality_backend="none"), device="cpu")
+    monkeypatch.setattr(analyzer, "calculate_average_scene_complexity_streaming",
+                        lambda *a, **k: calls.append(a[0]) or real(*a, **k))
+    base = {"crf": 20, "resize_width": 32, "resize_height": 32, "frame_interval": 3,
+            "quality_backend": "none", "preset": "ultrafast"}
+    t_csv, j_csv = str(tmp_path / "torch.csv"), str(tmp_path / "jax.csv")
+    analyzer.process_video_and_extract_metrics(env["clip"], Config(**base, csv_file=t_csv), device="cpu")
+    assert len(calls) == 1
+    janalyzer.process_video_and_extract_metrics(
+        env["clip"], JaxConfig(**base, streaming_complexity=True, csv_file=j_csv))
+    (jrow,), (trow,) = read_rows(j_csv), read_rows(t_csv)
+    _compare_rows(jrow, trow)
 
 
 def test_device_defaults_to_the_card(env, monkeypatch):
@@ -205,6 +257,13 @@ assert all(np.isfinite(res.as_tuple())), res
 planes = [torch.from_numpy(a) for a in (clip.y, clip.u, clip.v, np.roll(clip.y, 1, 0), clip.v, clip.u)]
 packed, blur = chunk_kernels(*planes, torch.zeros(h, w), False)
 assert packed.shape == (len(CHUNK_KEYS), n) and bool(torch.isfinite(packed[:-5]).all())
+from rtvqa_tpu_torch.kernels.vif import vif_features_cuda
+from rtvqa_tpu_torch.metrics.complexity_streaming import ComplexityAccumulator
+vif = vif_features_cuda(planes[0], planes[3])
+assert all(bool(torch.isfinite(x).all()) for x in vif.values())
+acc = ComplexityAccumulator(32, 32, chunk=2, device="cpu")
+acc.add(clip.y, clip.u, clip.v, clip.timestamps_ms)
+assert np.allclose(acc.finalize().as_tuple(), res.as_tuple(), rtol=1e-5)
 assert sys.modules["jax"] is None and sys.modules["rtvqa_tpu"] is None
 print("OK", res.motion)
 """

@@ -1,6 +1,10 @@
 """The quality chunk's CUDA kernels: their plain versions vs the Pallas
 kernels they replace, and the wrappers' CPU/CUDA routing.
 
+VIF at one scale (``vif_scale_plain``, kernel 4's plain version) is held to
+the acceptance tolerances of the JAX package's own tests: rel 2e-4 at scale
+0 and 3e-4 at scales 1-3, the next scale's planes at rel 1e-4 / abs 1e-3.
+
 The Pallas kernels run in interpret mode on the CPU, with exact f32
 filters (``fast3=False``), as tests/test_quality_pallas.py runs them. On a
 CPU tensor each CUDA wrapper takes its plain version; on any other device
@@ -19,7 +23,7 @@ import torch
 
 from rtvqa_tpu.kernels.adm_pallas import adm_scale_pallas, adm_tail_pallas
 from rtvqa_tpu.kernels.quality_pallas import quality_fused_pallas
-from rtvqa_tpu.kernels.vif_pallas import vif_tail_pallas
+from rtvqa_tpu.kernels.vif_pallas import vif_features_pallas, vif_scale_pallas, vif_tail_pallas
 from rtvqa_tpu_torch.kernels import _build
 from rtvqa_tpu_torch.kernels.adm import (
     adm_scale_cuda,
@@ -28,7 +32,14 @@ from rtvqa_tpu_torch.kernels.adm import (
     adm_tail_plain,
 )
 from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda, quality_fused_plain
-from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda, vif_tail_plain
+from rtvqa_tpu_torch.kernels.vif import (
+    vif_features_cuda,
+    vif_features_plain,
+    vif_scale_cuda,
+    vif_scale_plain,
+    vif_tail_cuda,
+    vif_tail_plain,
+)
 from tests.test_torch_quality import rel_err, t, yuv_pair
 
 torch.set_num_threads(1)
@@ -92,6 +103,46 @@ def test_adm_plain_matches_pallas(quality_cases, shape, egl):
     assert rel_err(got["den"].numpy(), want["den"]) < 3e-4
 
 
+VIF_SCALE_CASES = [  # (dtype, egl, (h, w)): u8 and f32, egl None and 1.0, one odd size
+    (np.uint8, None, (48, 64)),
+    (np.float32, 1.0, (48, 64)),
+    (np.uint8, 1.0, (53, 71)),
+]
+
+
+@pytest.mark.parametrize("scale", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype,egl,shape", VIF_SCALE_CASES)
+def test_vif_scale_plain_matches_pallas(scale, dtype, egl, shape):
+    rng = np.random.default_rng(31 + scale)
+    ry, _, _, dy, _, _ = yuv_pair(rng, 2, *shape)
+    ref, dis = ry.astype(dtype), dy.astype(dtype)
+    want = vif_scale_pallas(ref, dis, scale, egl=egl, interpret=True, fast3=False, crop=True)
+    got = vif_scale_plain(t(ref), t(dis), scale, egl)
+    assert rel_err(got[0].numpy(), want[0]) < (2e-4 if scale == 0 else 3e-4)
+    if scale == 3:
+        assert got[1] is None and got[2] is None and want[1] is None
+        return
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == w.shape == (2, (shape[0] + 1) // 2, (shape[1] + 1) // 2)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("egl", [None, 1.0])
+def test_vif_features_cuda_on_cpu_matches_pallas(egl):
+    """The four-scale chain: on CPU tensors ``vif_features_cuda`` is its
+    plain version, held against ``vif_features_pallas`` (interpret mode)."""
+    rng = np.random.default_rng(37)
+    ry, _, _, dy, _, _ = yuv_pair(rng, 2, 56, 70)
+    want = vif_features_pallas(ry.astype(np.float32), dy.astype(np.float32), enhn_gain_limit=egl,
+                               fast3=False)
+    got = vif_features_cuda(t(ry), t(dy), egl)
+    plain = vif_features_plain(t(ry), t(dy), egl)
+    for k in range(4):
+        key = f"vif_scale{k}"
+        assert torch.equal(got[key], plain[key]), key
+        assert rel_err(got[key].numpy(), want[key]) < (2e-4 if k == 0 else 3e-4), key
+
+
 def test_identity_pair(rng):
     """Identical ref and dis: SSE 0, SSIM 1, VIF 1 at every scale, ADM
     num = den; frame 0's SAD against its own blur is 0."""
@@ -115,7 +166,8 @@ def test_identity_pair(rng):
 def test_wrappers_on_cpu_are_plain(rng):
     planes = tuple(map(t, yuv_pair(rng, 2, 24, 40)))
     blur = torch.zeros(24, 40)
-    counts = [k.launches for k in (quality_fused_cuda, vif_tail_cuda, adm_scale_cuda, adm_tail_cuda)]
+    counts = [k.launches for k in (quality_fused_cuda, vif_tail_cuda, adm_scale_cuda, adm_tail_cuda,
+                                   vif_scale_cuda)]
     q, qp = quality_fused_cuda(*planes, blur), quality_fused_plain(*planes, blur)
     for key in qp:
         assert torch.equal(q[key], qp[key]), key
@@ -126,7 +178,11 @@ def test_wrappers_on_cpu_are_plain(rng):
         assert torch.equal(x, y)
     for key, v in adm_tail_cuda(a[2], a[3]).items():
         assert torch.equal(v, adm_tail_plain(a[2], a[3])[key])
-    assert counts == [k.launches for k in (quality_fused_cuda, vif_tail_cuda, adm_scale_cuda, adm_tail_cuda)]
+    for scale in range(4):
+        for x, y in zip(vif_scale_cuda(planes[0], planes[3], scale), vif_scale_plain(planes[0], planes[3], scale)):
+            assert (x is None and y is None) or torch.equal(x, y)
+    wrappers = (quality_fused_cuda, vif_tail_cuda, adm_scale_cuda, adm_tail_cuda, vif_scale_cuda)
+    assert counts == [k.launches for k in wrappers]
 
 
 def test_wrappers_refuse_non_cuda_devices():
@@ -143,6 +199,8 @@ def test_wrappers_refuse_non_cuda_devices():
         adm_scale_cuda(y, y)
     with pytest.raises(ValueError, match="CUDA"):
         adm_tail_cuda(f, f)
+    with pytest.raises(ValueError, match="CUDA"):
+        vif_scale_cuda(y, y, 0)
 
 
 def test_kernel_sources_are_built():
