@@ -33,7 +33,15 @@ cannot decode there):
   (VIF at one scale) against its plain version at each scale of a 14-frame
   chunk, the four-scale chain against the fused quality kernel's and the
   VIF tail's values on 1080p frames, then the chunk loop over 28 pairs in
-  two chunks on the kernels and on the plain versions.
+  two chunks on the kernels and on the plain versions;
+* the measurement path (``trace`` and ``probes``): the quality loop once
+  under ``obs/profiler.py::device_trace``, whose exported trace must name
+  every ``__global__`` kernel of the route; kernels 6a (ADM scale 0's input
+  path, beside kernel 6 on the 64-frame 1080p chunk), 8 (strip windows, u8
+  and f32, 16x1080x1920) and 9 (the strip-read floor, f32/bf16/u8,
+  128x1088x2176) against their plain versions, then the three entry points
+  ``python -m rtvqa_tpu_torch.probes.{adm_stages,int8_dma,dma_floor}`` at
+  their default shapes.
 
 The kernels' launch counts are set to 0 just before each path's kernel run
 and read just after it; every kernel of the path must have launched. Any
@@ -45,9 +53,11 @@ one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 {...}}``. ``bound_ms`` is the larger of the bytes a kernel's function must
 move over 3.35 TB/s and its operations over 67 TFLOP/s (the H100 SXM's f32
 rate outside the tensor cores; integer operations are counted at that rate
-too), computed from this run's shapes by the ``*_work`` functions below.
-No single PyTorch call computes any of these functions, so ``library_ms`` is
-null. Imports nothing of JAX.
+too), computed from this run's shapes by ``rtvqa_tpu_torch/obs/roofline.py``.
+``library_ms`` is ``torch.sum(x, (1, 2), dtype=torch.float32)`` for kernel
+8; no single PyTorch call computes any other kernel's function (kernel 9's
+is the read of its windows into shared memory, whose bound counts the rows
+they cover once), so it is null there. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -72,8 +83,6 @@ GRAY_ATOL = 1e-3               # tests/test_pallas_kernels.py:96 (FMA ULPs)
 MOTION_RTOL = 5e-3             # docs/PARITY.md motion row (near-tie argmins)
 SUITE_RTOL = 1e-4
 NOISE = 4                      # dis = ref + uniform integers in [-NOISE, NOISE]
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM peaks: HBM3 bandwidth, dense FP32 rate
-F32_OPS_PER_S = 67e12
 # Quality tolerances: those of the JAX package's kernel tests
 # (tests/test_quality_pallas.py, test_vif_pallas.py, test_adm_pallas.py).
 SSE_RTOL = 1e-6
@@ -86,6 +95,10 @@ VIF_TAIL_RTOL = 3e-4
 ADM_RTOL = 2e-4
 ADM2_RTOL = 3e-4
 VMAF_RTOL = 3e-4               # pooled VMAF: the widest of its features' tolerances
+STRIP_SUM_RTOL = 1e-6         # scripts/probe_int8_dma.py's own check
+# The quality route's __global__ kernels, which the trace must name.
+ROUTE_KERNELS = ("ssim_sse_kernel", "blur_sad_kernel", "vif_stats_kernel", "filter_decimate_kernel",
+                 "adm_scale_kernel", "reduce_rows_kernel")
 # Against the NumPy oracles: tests/test_quality.py (MSE, SSIM), test_vmaf.py (ADM).
 ORACLE_MSE_RTOL, ORACLE_SSIM_ATOL, ORACLE_ADM_RTOL = 1e-5, 1e-4, 5e-4
 
@@ -102,18 +115,6 @@ def make_frames(n: int, h: int, w: int, seed: int):
     u = rng.integers(100, 156, (n, h // 2, w // 2), np.uint8)
     v = rng.integers(100, 156, (n, h // 2, w // 2), np.uint8)
     return y, u, v
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` runs, after one warm-up."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def wall_s(fn):
@@ -159,89 +160,14 @@ def profile_device(label: str, fn, top: int = 8) -> None:
         print(f"  {ms:10.3f} ms  x{count:<5d} {name[:100]}")
 
 
-def record(name, source, replaces, err, ms, plain_ms, work) -> dict:
+def record(name, source, replaces, err, ms, plain_ms, work, library_ms=None) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; ``work`` = (bytes, ops)."""
-    nbytes, ops = work
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    from rtvqa_tpu_torch.obs.roofline import kernel_bound
+
+    bound_ms, bound_by = kernel_bound(*work)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
-
-
-# ----- Work of each kernel's function (bytes moved once, operations) --------
-# Operation counts per pixel follow the kernels' arithmetic (csrc/*.cu): a
-# K-tap filter output is K multiplies and K-1 adds; the VIF statistics are
-# the five moment filters, vertical and horizontal, plus 3 products and ~30
-# operations of clamps, ratios and log2 per pixel; the SSE is 3 and the SSIM
-# block and window sums ~10 integer operations per pixel and plane; the ADM
-# per-subband-pixel work (decoupling, CSF, 3x3 mask, six cubes and sums) is
-# 86 operations.
-
-
-def _taps_ops(k: int) -> int:
-    return 2 * k - 1
-
-
-def _vif_stats_ops(k: int) -> int:
-    return 3 + 10 * _taps_ops(k) + 30
-
-
-def _filter_dec_ops(k: int, h: int, w: int) -> int:
-    """Two images, vertical pass at the even rows, horizontal at the even columns."""
-    h2, w2 = (h + 1) // 2, (w + 1) // 2
-    return 2 * _taps_ops(k) * (h2 * w + h2 * w2)
-
-
-def _adm_scale_ops(h: int, w: int) -> int:
-    h2, w2 = (h + 1) // 2, (w + 1) // 2
-    return 2 * 2 * _taps_ops(4) * h2 * w + (2 * 4 * _taps_ops(4) + 86) * h2 * w2
-
-
-def gray_work(b, h, w, hc, wc):
-    return b * h * w * (1 + 4) + 2 * b * hc * wc, 23 * b * h * w
-
-
-def motion_work(pairs, h, w, block, radius):
-    nblocks = pairs * (h // block) * (w // block)
-    return 2 * 4 * pairs * h * w + 4 * pairs, 3 * nblocks * block * block * (2 * radius + 1) ** 2
-
-
-def quality_work(b, h, w, hc, wc):
-    h2, w2 = (h + 1) // 2, (w + 1) // 2
-    nbytes = 2 * b * h * w + 4 * b * hc * wc + 2 * 4 * h * w + 2 * 4 * b * h2 * w2 + 9 * 4 * b
-    per_luma = 13 + (2 * _taps_ops(5) + 3) + _vif_stats_ops(17)
-    ops = b * (per_luma * h * w + _filter_dec_ops(9, h, w) + 2 * 13 * hc * wc)
-    return nbytes, ops
-
-
-def vif_tail_work(b, h1, w1):
-    h2, w2 = (h1 + 1) // 2, (w1 + 1) // 2
-    h3, w3 = (h2 + 1) // 2, (w2 + 1) // 2
-    ops = b * (_vif_stats_ops(9) * h1 * w1 + _filter_dec_ops(5, h1, w1)
-               + _vif_stats_ops(5) * h2 * w2 + _filter_dec_ops(3, h2, w2) + _vif_stats_ops(3) * h3 * w3)
-    return 2 * 4 * b * h1 * w1 + 3 * 4 * b, ops
-
-
-def vif_scale_work(b, h, w, in_bytes=1):
-    """Kernel 4 at scale 0 (17-tap statistics, 9-tap decimation of both
-    frames): the pair in, the vif values and the decimated pair out."""
-    h2, w2 = (h + 1) // 2, (w + 1) // 2
-    nbytes = 2 * in_bytes * b * h * w + 2 * 4 * b * h2 * w2 + 4 * b
-    return nbytes, b * (_vif_stats_ops(17) * h * w + _filter_dec_ops(9, h, w))
-
-
-def adm_scale0_work(b, h, w):
-    h2, w2 = (h + 1) // 2, (w + 1) // 2
-    return 2 * b * h * w + 2 * 4 * b * h2 * w2 + 2 * 4 * b, b * _adm_scale_ops(h, w)
-
-
-def adm_tail_work(b, h1, w1):
-    ops, h, w = 0, h1, w1
-    for _ in range(3):
-        ops += _adm_scale_ops(h, w)
-        h, w = (h + 1) // 2, (w + 1) // 2
-    return 2 * 4 * b * h1 * w1 + 2 * 4 * b, b * ops
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
 def max_rel(got, want) -> float:
@@ -294,7 +220,9 @@ def phase_build() -> None:
 
 def phase_gray(dev, y, u, v) -> dict:
     from rtvqa_tpu_torch.kernels.gray import yuv420_to_gray_cuda
+    from rtvqa_tpu_torch.obs.roofline import gray_work
     from rtvqa_tpu_torch.ops.color import yuv420_to_gray
+    from rtvqa_tpu_torch.probes import time_ms
 
     got = yuv420_to_gray_cuda(y, u, v)
     want = yuv420_to_gray(y, u, v)
@@ -302,8 +230,8 @@ def phase_gray(dev, y, u, v) -> dict:
     err = float((got - want).abs().max())
     if not err <= GRAY_ATOL:
         raise AssertionError(f"gray kernel vs plain: max abs err {err} > {GRAY_ATOL}")
-    ms = cuda_ms(lambda: yuv420_to_gray_cuda(y, u, v), 20)
-    plain_ms = cuda_ms(lambda: yuv420_to_gray(y, u, v), 5)
+    ms = time_ms(lambda _: yuv420_to_gray_cuda(y, u, v), [None], 20, dev)
+    plain_ms = time_ms(lambda _: yuv420_to_gray(y, u, v), [None], 5, dev)
     print(f"gray: {tuple(y.shape)} max_abs_err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return record("yuv420_to_gray", "rtvqa_tpu_torch/csrc/gray.cu",
                   "rtvqa_tpu/kernels/gray_pallas.py:116", err, ms, plain_ms,
@@ -312,7 +240,9 @@ def phase_gray(dev, y, u, v) -> dict:
 
 def phase_motion(dev, gray) -> dict:
     from rtvqa_tpu_torch.kernels.motion import block_match_motion_cuda
+    from rtvqa_tpu_torch.obs.roofline import motion_work
     from rtvqa_tpu_torch.ops.motion import block_match_motion, down2_mean
+    from rtvqa_tpu_torch.probes import time_ms
 
     bp, rp = BLOCK // 2, RADIUS // 2
     gh = down2_mean(gray)
@@ -336,8 +266,8 @@ def phase_motion(dev, gray) -> dict:
     if not bool((k_static == 0).all()):
         raise AssertionError(f"motion on a static scene not 0: {k_static}")
 
-    ms = cuda_ms(lambda: block_match_motion_cuda(prev, curr, bp, rp), 10)
-    plain_ms = cuda_ms(lambda: block_match_motion(prev, curr, bp, rp), 3)
+    ms = time_ms(lambda _: block_match_motion_cuda(prev, curr, bp, rp), [None], 10, dev)
+    plain_ms = time_ms(lambda _: block_match_motion(prev, curr, bp, rp), [None], 3, dev)
     print(f"motion: {tuple(prev.shape)} pairs, block {bp} r {rp}: max_abs_err {err:.3g} "
           f"(rel {rel:.3g}); integer pair exact ({float(k_int[0]):.6f}), static 0; "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -431,6 +361,13 @@ def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
     )
     from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda, quality_fused_plain
     from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda, vif_tail_plain
+    from rtvqa_tpu_torch.obs.roofline import (
+        adm_scale0_work,
+        adm_tail_work,
+        quality_work,
+        vif_tail_work,
+    )
+    from rtvqa_tpu_torch.probes import time_ms
     from rtvqa_tpu_torch.vmaf.filters import filter1d_sep
     from rtvqa_tpu_torch.vmaf.motion import FILTER_5
 
@@ -463,8 +400,8 @@ def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
     errs["sad_mean"] = max_abs(got["sad_sum"] / (h * w), want["sad_sum"] / (h * w))
     for key in ("vif_scale0", "blur_carry", "dec_ref", "dec_dis"):
         errs[key] = max_abs(got[key], want[key])
-    ms = cuda_ms(lambda: quality_fused_cuda(*args), 10)
-    plain_ms = cuda_ms(lambda: quality_fused_plain(*args), 2)
+    ms = time_ms(lambda _: quality_fused_cuda(*args), [None], 10, dev)
+    plain_ms = time_ms(lambda _: quality_fused_plain(*args), [None], 2, dev)
     mem = (peak_gib(lambda: quality_fused_cuda(*args)), peak_gib(lambda: quality_fused_plain(*args)))
     print(f"quality_fused: {tuple(ry.shape)} max abs errs {json.dumps(errs)} "
           f"(vif_scale0 rel {max_rel(got['vif_scale0'], want['vif_scale0']):.3g}); "
@@ -481,8 +418,8 @@ def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
         check_close(key, vk[key], vp[key], rtol=VIF_TAIL_RTOL)
     rels = {key: max_rel(vk[key], vp[key]) for key in vp}
     err = max(max_abs(vk[key], vp[key]) for key in vp)
-    ms = cuda_ms(lambda: vif_tail_cuda(*dec), 10)
-    plain_ms = cuda_ms(lambda: vif_tail_plain(*dec), 2)
+    ms = time_ms(lambda _: vif_tail_cuda(*dec), [None], 10, dev)
+    plain_ms = time_ms(lambda _: vif_tail_plain(*dec), [None], 2, dev)
     mem = (peak_gib(lambda: vif_tail_cuda(*dec)), peak_gib(lambda: vif_tail_plain(*dec)))
     print(f"vif_tail: {tuple(dec[0].shape)} max abs err {err:.3g}, rel {json.dumps(rels)}; "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; peak {mem[0]:.2f} vs {mem[1]:.2f} GiB")
@@ -500,8 +437,8 @@ def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
     check_close("a_ref", a_ref, pa_ref, rtol=PLANE_RTOL, atol=PLANE_ATOL)
     check_close("a_dis", a_dis, pa_dis, rtol=PLANE_RTOL, atol=PLANE_ATOL)
     err = max(max_abs(x, y) for x, y in ((num, pn), (den, pd), (a_ref, pa_ref), (a_dis, pa_dis)))
-    ms = cuda_ms(lambda: adm_scale_cuda(ry, dy, 0), 10)
-    plain_ms = cuda_ms(lambda: adm_scale_plain(ry, dy, 0), 2)
+    ms = time_ms(lambda _: adm_scale_cuda(ry, dy, 0), [None], 10, dev)
+    plain_ms = time_ms(lambda _: adm_scale_plain(ry, dy, 0), [None], 2, dev)
     mem = (peak_gib(lambda: adm_scale_cuda(ry, dy, 0)), peak_gib(lambda: adm_scale_plain(ry, dy, 0)))
     print(f"adm_scale0: {tuple(ry.shape)} max abs err {err:.3g} (num rel {max_rel(num, pn):.3g}, "
           f"den rel {max_rel(den, pd):.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
@@ -520,8 +457,8 @@ def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
     adm2_p = (pn + tp["num"]) / (pd + tp["den"])
     check_close("adm2", adm2_k, adm2_p, rtol=ADM2_RTOL)
     err = max(max_abs(tk[k], tp[k]) for k in ("num", "den"))
-    ms = cuda_ms(lambda: adm_tail_cuda(a_ref, a_dis), 10)
-    plain_ms = cuda_ms(lambda: adm_tail_plain(a_ref, a_dis), 2)
+    ms = time_ms(lambda _: adm_tail_cuda(a_ref, a_dis), [None], 10, dev)
+    plain_ms = time_ms(lambda _: adm_tail_plain(a_ref, a_dis), [None], 2, dev)
     mem = (peak_gib(lambda: adm_tail_cuda(a_ref, a_dis)), peak_gib(lambda: adm_tail_plain(a_ref, a_dis)))
     print(f"adm_tail: {tuple(a_ref.shape)} max abs err {err:.3g} (adm2 rel {max_rel(adm2_k, adm2_p):.3g}); "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; peak {mem[0]:.2f} vs {mem[1]:.2f} GiB")
@@ -737,6 +674,8 @@ def phase_vif_scale(dev, ref_np, dis_np, ref_1080, dis_1080) -> dict:
         vif_scale_plain,
         vif_tail_cuda,
     )
+    from rtvqa_tpu_torch.obs.roofline import vif_scale_work
+    from rtvqa_tpu_torch.probes import time_ms
 
     ry, dy = (torch.from_numpy(a).to(dev) for a in (ref_np[0], dis_np[0]))
     b, h, w = ry.shape
@@ -761,10 +700,10 @@ def phase_vif_scale(dev, ref_np, dis_np, ref_1080, dis_1080) -> dict:
         rels[f"scale{scale}"] = max_rel(k[0], p[0])
         r, d = k[1], k[2]
     del got, r, d, k, p
-    ms = cuda_ms(lambda: vif_scale_cuda(ry, dy, 0), 10)
-    plain_ms = cuda_ms(lambda: vif_scale_plain(ry, dy, 0), 2)
-    ms4 = cuda_ms(lambda: vif_features_cuda(ry, dy), 10)
-    plain4_ms = cuda_ms(lambda: vif_features_plain(ry, dy), 2)
+    ms = time_ms(lambda _: vif_scale_cuda(ry, dy, 0), [None], 10, dev)
+    plain_ms = time_ms(lambda _: vif_scale_plain(ry, dy, 0), [None], 2, dev)
+    ms4 = time_ms(lambda _: vif_features_cuda(ry, dy), [None], 10, dev)
+    plain4_ms = time_ms(lambda _: vif_features_plain(ry, dy), [None], 2, dev)
     mem = (peak_gib(lambda: vif_scale_cuda(ry, dy, 0)), peak_gib(lambda: vif_scale_plain(ry, dy, 0)))
     work = vif_scale_work(b, h, w)
     rec = record("vif_scale", "rtvqa_tpu_torch/csrc/vif.cu", "rtvqa_tpu/kernels/vif_pallas.py:583",
@@ -819,6 +758,153 @@ def phase_wide_quality(dev, ref_np, dis_np) -> dict:
     return launches
 
 
+def phase_trace(dev, ref_np, dis_np, s_alone) -> None:
+    """``obs/profiler.py::device_trace`` around one kernel-path run of the
+    quality loop: the exported Chrome trace must name every ``__global__``
+    kernel of the route, and the series must equal the untraced run's."""
+    from rtvqa_tpu_torch.metrics.full_reference import auto_chunk
+    from rtvqa_tpu_torch.obs.profiler import device_trace
+
+    chunk = auto_chunk(W, H)
+    with tempfile.TemporaryDirectory() as log_dir:
+        def traced():
+            with device_trace(log_dir, dev) as path:
+                return run_loop(dev, ref_np, dis_np, chunk, "kernel"), path
+
+        ((series, _, _), path), t, launches = counted_run(quality_kernels(), traced)
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {e["name"] for e in kernels}
+    missing = [k for k in ROUTE_KERNELS if not any(k in name for name in names)]
+    if missing:
+        raise AssertionError(f"trace: no kernel event names {missing} (kernel names: {sorted(names)[:20]})")
+    for key, a in s_alone.items():
+        if not np.array_equal(series[key], a):
+            raise AssertionError(f"trace: series {key} differs from the untraced loop")
+    check_launches("trace", launches, {k: 1 for k in ("quality_fused_cuda", "vif_tail_cuda",
+                                                      "adm_scale_cuda", "adm_tail_cuda")})
+    busy_ms = sum(e.get("dur", 0.0) for e in kernels) / 1e3
+    print(f"trace: {N}x{H}x{W} quality loop under device_trace in {t:.4f} s; {size} bytes, "
+          f"{len(events)} events, {len(kernels)} kernel events ({busy_ms:.3f} ms), names all of "
+          f"{list(ROUTE_KERNELS)}; series equal to the untraced loop")
+
+
+def phase_probes(dev, ref_y, dis_y) -> list[dict]:
+    """Kernels 6a, 8 and 9 against their plain versions at the probes'
+    shapes (6a at the quality chunk's, beside kernel 6), then the
+    measurement path: the three probe entry points at their default shapes,
+    with the launch counts set to 0 before and read after."""
+    from rtvqa_tpu_torch.kernels.adm import (
+        adm_input_cuda,
+        adm_input_plain,
+        adm_scale_cuda,
+        adm_strip_plan,
+    )
+    from rtvqa_tpu_torch.kernels.probes import (
+        strip_floor_cuda,
+        strip_floor_plain,
+        strip_sum_cuda,
+        strip_sum_plain,
+    )
+    from rtvqa_tpu_torch.obs.roofline import (
+        adm_input_work,
+        strip_floor_windows,
+        strip_floor_work,
+        strip_sum_windows,
+        strip_sum_work,
+    )
+    from rtvqa_tpu_torch.probes import adm_stages, device_ms, dma_floor, fmt_ms, int8_dma, time_ms
+
+    # Kernel 6a on the 64-frame 1080p luma pair, exact.
+    ry, dy = (torch.from_numpy(a).to(dev) for a in (ref_y, dis_y))
+    b, h, w = ry.shape
+    got, want = adm_input_cuda(ry, dy), adm_input_plain(ry, dy)
+    torch.cuda.synchronize()
+    for key, g, p in zip(("num", "den", "a_ref", "a_dis"), got, want):
+        if g.shape != p.shape or not torch.equal(g, p):
+            raise AssertionError(f"adm_input {key}: kernel {g.flatten()[:4]} vs plain {p.flatten()[:4]}")
+    ms = time_ms(lambda _: adm_input_cuda(ry, dy), [None], 20, dev)
+    plain_ms = time_ms(lambda _: adm_input_plain(ry, dy), [None], 5, dev)
+    k6_ms = time_ms(lambda _: adm_scale_cuda(ry, dy, 0), [None], 10, dev)
+    dev_ms = [device_ms(lambda p: fn(*p), [(ry, dy)], 10, dev) for fn in (adm_input_cuda, adm_scale_cuda)]
+    rec6a = record("adm_input", "rtvqa_tpu_torch/csrc/adm.cu", "rtvqa_tpu/kernels/adm_pallas.py:590",
+                   0.0, ms, plain_ms, adm_input_work(b, h, w, adm_strip_plan(h, w)[1]))
+    print(f"adm_input: {(b, h, w)} u8 pair, num equal to plain ({got[0][:2].tolist()} ...); kernel "
+          f"{ms:.4f} ms (device {fmt_ms(dev_ms[0])}), plain {plain_ms:.4f} ms, bound {rec6a['bound_ms']:.4f} "
+          f"ms; kernel 6 (adm_scale_cuda) {k6_ms:.4f} ms (device {fmt_ms(dev_ms[1])}): the input path is "
+          f"{ms / k6_ms:.1%} of it")
+    del ry, dy, got, want
+
+    # Kernel 8 at the script's shape, u8 and f32; three inputs per type (> L2).
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    shape8 = (16, 1080, 1920)
+    xs = [torch.randint(0, 256, shape8, generator=gen, device=dev, dtype=torch.uint8) for _ in range(3)]
+
+    def library(x):
+        return torch.sum(x, (1, 2), dtype=torch.float32)
+
+    rec8, line = None, []
+    for name, inputs in (("u8", xs), ("f32", [x.float() for x in xs])):
+        got, want = strip_sum_cuda(inputs[0]), strip_sum_plain(inputs[0])
+        torch.cuda.synchronize()
+        check_close(f"strip_sum {name}", got, want, rtol=STRIP_SUM_RTOL)
+        ms = time_ms(strip_sum_cuda, inputs, 20, dev)
+        plain_ms = time_ms(strip_sum_plain, inputs, 3, dev)
+        lib_ms = time_ms(library, inputs, 20, dev)
+        dev_ms = [device_ms(fn, inputs, 20, dev) for fn in (strip_sum_cuda, library)]
+        rec = record(f"strip_sum_{name}", "rtvqa_tpu_torch/csrc/probes.cu",
+                     "scripts/probe_int8_dma.py:68", max_abs(got, want), ms, plain_ms,
+                     strip_sum_work(*shape8, inputs[0].element_size()), lib_ms)
+        rec8 = rec8 or rec
+        windows = strip_sum_windows(*shape8, inputs[0].element_size())
+        line.append(f"{name} kernel {ms:.4f} ms (device {fmt_ms(dev_ms[0])}; bound {rec['bound_ms']:.4f}, "
+                    f"{rec['bound_ms'] / ms:.1%} of it; windows read at {windows / ms / 1e6:.1f} GB/s; "
+                    f"rel err {max_rel(got, want):.3g}), plain {plain_ms:.4f}, torch.sum {lib_ms:.4f} "
+                    f"(device {fmt_ms(dev_ms[1])})")
+    print(f"strip_sum: {shape8}: " + "; ".join(line))
+    del xs, inputs
+
+    # Kernel 9 at the script's shape in f32, bf16 and u8, exact.
+    shape9 = (128, 1088, 2176)
+    rec9, line = None, []
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16), ("u8", torch.uint8)):
+        x = (torch.rand(shape9, generator=gen, device=dev) * 255.0).to(dtype)
+        got, want = strip_floor_cuda(x), strip_floor_plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"strip_floor {name}: kernel {float(got)} vs plain {float(want)}")
+        ms = time_ms(strip_floor_cuda, [x], 20, dev)
+        dms = device_ms(strip_floor_cuda, [x], 20, dev)
+        plain_ms = time_ms(strip_floor_plain, [x], 5, dev)
+        work = strip_floor_work(*shape9, x.element_size())
+        rec = record(f"strip_floor_{name}", "rtvqa_tpu_torch/csrc/probes.cu",
+                     "scripts/probe_dma_floor.py:119", 0.0, ms, plain_ms, work)
+        rec9 = rec9 or rec
+        windows = strip_floor_windows(*shape9, x.element_size())
+        line.append(f"{name} kernel {ms:.4f} ms ({rec['bound_ms'] / ms:.1%} of the bound "
+                    f"{rec['bound_ms']:.4f}; windows read at {windows / ms / 1e6:.1f} GB/s; device "
+                    f"{fmt_ms(dms)}), plain {plain_ms:.4f}")
+        del x
+    print(f"strip_floor: {shape9}, equal to plain: " + "; ".join(line))
+    torch.cuda.empty_cache()
+
+    # The measurement path through its entry points.
+    kernels = (adm_input_cuda, adm_scale_cuda, strip_sum_cuda, strip_floor_cuda)
+    rcs, t, launches = counted_run(
+        kernels, lambda: [m.main(["--reps", "5"]) for m in (adm_stages, int8_dma, dma_floor)])
+    if any(rcs):
+        raise AssertionError(f"probe entry points returned {rcs}")
+    check_launches("probes", launches, {k.__name__: 1 for k in kernels})
+    print(f"probes: adm_stages, int8_dma, dma_floor at their default shapes in {t:.4f} s; "
+          f"launches {launches}")
+    torch.cuda.empty_cache()
+    for rec, wrapper in ((rec6a, "adm_input_cuda"), (rec8, "strip_sum_cuda"), (rec9, "strip_floor_cuda")):
+        rec["launches"] = launches[wrapper]
+    return [rec6a, rec8, rec9]
+
+
 def main() -> int:
     name, smi = phase_device()
     print(f"nvidia-smi: {smi}")
@@ -857,6 +943,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_combined(dev, ref_np, dis_np, series)
     torch.cuda.empty_cache()
+    phase_trace(dev, ref_np, dis_np, series)
+    torch.cuda.empty_cache()
+    probe_recs = phase_probes(dev, ref_np[0][first], dis_np[0][first])
 
     wide_ref = make_frames(WIDE_N, WIDE_H, WIDE_W, SEED + 7)
     wide_dis = distort(wide_ref, SEED + 8)
@@ -867,7 +956,7 @@ def main() -> int:
     launches = phase_wide_quality(dev, wide_ref, wide_dis)
     vif_rec["launches"] = launches["vif_scale_cuda"]
     print(smi)
-    print(json.dumps({"kernels": [gray_rec, motion_rec, *quality_recs, vif_rec]}))
+    print(json.dumps({"kernels": [gray_rec, motion_rec, *quality_recs, vif_rec, *probe_recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -5,9 +5,10 @@
 
 Runs on the card (``--device cuda``, the default; it raises without one);
 ``--device cpu`` runs the plain PyTorch ops on the CPU. ``--sweep`` runs the
-CRF ladder on that one device. ``--sharded`` (multi-GPU) and ``--trace``
-(device traces) are accepted for parity with the JAX CLI and refused, as
-they are not ported yet.
+CRF ladder on that one device. ``--trace DIR`` wraps the run in a
+``torch.profiler`` trace written to DIR as a Chrome trace JSON
+(``obs/profiler.py::device_trace``). ``--sharded`` (multi-GPU) is accepted
+for parity with the JAX CLI and refused, as it is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import sys
 
 from rtvqa_tpu_torch.config import load_config
 from rtvqa_tpu_torch.obs.logging import get_logger, setup_logging, stop_logging
-from rtvqa_tpu_torch.obs.profiler import StageTimer
+from rtvqa_tpu_torch.obs.profiler import StageTimer, device_trace
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -33,34 +34,34 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--sharded", action="store_true",
                         help="Device-parallel sweep driver (not ported yet).")
     parser.add_argument("--trace", type=str, default=None, metavar="DIR",
-                        help="Device trace of the run (not ported yet).")
+                        help="Write a torch.profiler trace of the run (Chrome trace JSON) into DIR.")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="Where the metrics run (default: cuda; cpu only when asked).")
     parser.add_argument("--json", action="store_true",
                         help="Emit one JSON line with the metrics row (or the sweep stats) "
                         "and the stage profile.")
     args = parser.parse_args(argv)
-    for flag, given in (("--sharded", args.sharded), ("--trace", args.trace is not None)):
-        if given:
-            raise NotImplementedError(f"{flag} is not ported to rtvqa_tpu_torch yet")
+    if args.sharded:
+        raise NotImplementedError("--sharded is not ported to rtvqa_tpu_torch yet")
 
     setup_logging()
     logger = get_logger("rtvqa_tpu_torch.cli")
     config = load_config(args.config_file)
     timer = StageTimer()
     try:
-        if args.sweep is not None:
-            from rtvqa_tpu_torch.pipeline.sweep import DEFAULT_CRF_LADDER, run_sweep
+        with device_trace(args.trace, args.device):
+            if args.sweep is not None:
+                from rtvqa_tpu_torch.pipeline.sweep import DEFAULT_CRF_LADDER, run_sweep
 
-            # A bare --sweep means the default ladder, not a single-CRF run.
-            ladder = tuple(args.sweep) or DEFAULT_CRF_LADDER
-            result = run_sweep([args.input_video], config, crf_ladder=ladder, device=args.device)
-        else:
-            from rtvqa_tpu_torch.pipeline.analyzer import process_video_and_extract_metrics
+                # A bare --sweep means the default ladder, not a single-CRF run.
+                ladder = tuple(args.sweep) or DEFAULT_CRF_LADDER
+                result = run_sweep([args.input_video], config, crf_ladder=ladder, device=args.device)
+            else:
+                from rtvqa_tpu_torch.pipeline.analyzer import process_video_and_extract_metrics
 
-            result = process_video_and_extract_metrics(
-                args.input_video, config, timer=timer, device=args.device
-            )
+                result = process_video_and_extract_metrics(
+                    args.input_video, config, timer=timer, device=args.device
+                )
         if timer.totals:
             timer.log_summary()
         if args.json:

@@ -9,6 +9,9 @@
 // Replaces: rtvqa_tpu/kernels/adm_pallas.py::adm_scale_pallas at scale 0
 // (kernel body _adm0_kernel, u8 input) and, launched for scales 1-3 on f32
 // input, adm_pallas.py::adm_tail_pallas (kernel body _adm_tail_kernel).
+// adm_input_kernel replaces adm_scale_pallas(stages=0) (kernel body
+// _adm0_dma_only_kernel): kernel 6's input path and a checksum, nothing
+// else (bound: its input bytes, ~0.08 ms per 64-frame 1080p u8 pair).
 // The TPU kernels built every border into banded selection matrices and
 // lane rolls because Mosaic has no dynamic slicing; here a block stages
 // the raw (2*8+6) x (2*32+6) window of both frames in shared memory with
@@ -27,6 +30,7 @@
 // partials (float64) are reduced per frame in a fixed order.
 
 #include <cstdint>
+#include <utility>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -67,6 +71,24 @@ __device__ __forceinline__ float restore(float o, float t, bool angle_ok, float 
   return angle_ok ? mul(fminf(fmaxf(ratio, 0.0f), egl), o) : rst;
 }
 
+// The input path of one block: the raw (2*8+6) x (2*32+6) window of ref
+// and dis for the subband tile at (i0, j0) of frame blockIdx.z, from raw
+// row rs = 2*i0 - 4 and column cs = 2*j0 - 4 (reflected), into shared
+// memory as f32. Shared by adm_scale_kernel and adm_input_kernel, so the
+// input-only kernel (6a) moves exactly what kernel 6 moves.
+template <typename T>
+__device__ __forceinline__ void adm_stage_window(const T* __restrict__ ref, const T* __restrict__ dis,
+                                                 int h, int w, int i0, int j0, float* so, float* st) {
+  const int rs = 2 * (i0 - 1) - 2, cs = 2 * (j0 - 1) - 2;
+  const size_t frame = static_cast<size_t>(blockIdx.z) * h * w;
+  for (int i = threadIdx.x; i < kAdmRR * kAdmRC; i += kThreads) {
+    const int r = i / kAdmRC, c = i % kAdmRC;
+    const size_t g = frame + static_cast<size_t>(reflect_idx(rs + r, h)) * w + reflect_idx(cs + c, w);
+    so[i] = load_f(ref, g);
+    st[i] = load_f(dis, g);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 adm_scale_kernel(const T* __restrict__ ref, const T* __restrict__ dis, int h, int w, Taps db2,
@@ -85,14 +107,8 @@ adm_scale_kernel(const T* __restrict__ ref, const T* __restrict__ dis, int h, in
   const int h2 = (h + 1) / 2, w2 = (w + 1) / 2;
   const int i0 = blockIdx.y * kAdmTH, j0 = blockIdx.x * kAdmTW;
   const int rs = 2 * (i0 - 1) - 2, cs = 2 * (j0 - 1) - 2;
-  const size_t frame = static_cast<size_t>(blockIdx.z) * h * w;
 
-  for (int i = tid; i < kAdmRR * kAdmRC; i += kThreads) {
-    const int r = i / kAdmRC, c = i % kAdmRC;
-    const size_t g = frame + static_cast<size_t>(reflect_idx(rs + r, h)) * w + reflect_idx(cs + c, w);
-    so[i] = load_f(ref, g);
-    st[i] = load_f(dis, g);
-  }
+  adm_stage_window(ref, dis, h, w, i0, j0, so, st);
   __syncthreads();
 
   // Vertical pass at the (clamped) even rows of the halo'd subband rows.
@@ -179,11 +195,78 @@ adm_scale_kernel(const T* __restrict__ ref, const T* __restrict__ dis, int h, in
   for (int q = 0; q < kAdmQ; ++q) put_partial(part, kAdmQ, q, n_tiles, block_sum(acc[q], red));
 }
 
+// Kernel 6a, the input path alone: every block stages its window exactly
+// as adm_scale_kernel does and computes nothing else but a checksum, and it
+// is launched at kernel 6's blocks per SM (adm_input_pad), so its time is
+// what kernel 6 pays to load its windows. The checksum is the TPU
+// kernel's (adm_pallas.py::_adm0_dma_only_kernel): per frame, the sum over
+// the TPU strip plan of ref[st_s, 0] + dis[st_s, 0], with st_s =
+// clip(floor((2*s*strip - 4) / 8), 0, st_cap8) * 8 (adm_pallas.py::
+// _dma_row_start). Row st_s < h always, and lies in exactly one tile's
+// interior rows [2*i0, 2*i0 + 16); that tile of column 0 adds it from its
+// staged window. Per-tile partials (float64, exact for these values) are
+// reduced per frame in a fixed order, as kernel 6 reduces its sums.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+adm_input_kernel(const T* __restrict__ ref, const T* __restrict__ dis, int h, int w, int strip,
+                 int n_strips, int st_cap8, double* __restrict__ part, int n_tiles) {
+  __shared__ float so[kAdmRR * kAdmRC];
+  __shared__ float st[kAdmRR * kAdmRC];
+  __shared__ double red[kThreads];
+
+  const int i0 = blockIdx.y * kAdmTH, j0 = blockIdx.x * kAdmTW;
+  adm_stage_window(ref, dis, h, w, i0, j0, so, st);
+  __syncthreads();
+  if (blockIdx.x != 0) {
+    put_partial(part, 1, 0, n_tiles, 0.0);
+    return;
+  }
+  const int rs = 2 * (i0 - 1) - 2, cs = 2 * (j0 - 1) - 2;
+  double acc = 0.0;
+  for (int s = threadIdx.x; s < n_strips; s += kThreads) {
+    const int q = 2 * s * strip - 4;
+    const int row = min(max(q >= 0 ? q / 8 : -((7 - q) / 8), 0), st_cap8) * 8;
+    if (row >= 2 * i0 && row < 2 * i0 + 2 * kAdmTH) {
+      const int k = (row - rs) * kAdmRC - cs;
+      acc += static_cast<double>(so[k]) + static_cast<double>(st[k]);
+    }
+  }
+  put_partial(part, 1, 0, n_tiles, block_sum(acc, red));
+}
+
 inline dim3 adm_grid(int b, int h, int w) {
   return dim3(cdiv((w + 1) / 2, kAdmTW), cdiv((h + 1) / 2, kAdmTH), b);
 }
 
 inline int adm_tiles(int h, int w) { return cdiv((w + 1) / 2, kAdmTW) * cdiv((h + 1) / 2, kAdmTH); }
+
+// Kernel 6a's blocks hold a third of kernel 6's shared memory and fewer
+// registers, so more of them would fit on an SM, and its time would be the
+// staging cost at another occupancy. It is launched with unused dynamic
+// shared memory, padded in 256-byte steps until no more of its blocks fit
+// per SM than of kernel 6's. *pad: the bytes, found once per input type.
+template <typename T>
+cudaError_t adm_input_pad(int* pad) {
+  static const auto found = []() -> std::pair<cudaError_t, int> {
+    int k6 = 0, dev = 0, optin = 0;
+    cudaFuncAttributes attr{};
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k6, adm_scale_kernel<T>, kThreads, 0);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, adm_input_kernel<T>);
+    const int room = optin - static_cast<int>(attr.sharedSizeBytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(adm_input_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, room);
+    for (int bytes = 0; e == cudaSuccess && bytes <= room; bytes += 256) {
+      int k6a = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k6a, adm_input_kernel<T>, kThreads, bytes);
+      if (e == cudaSuccess && k6a <= k6) return {k6a == k6 ? cudaSuccess : cudaErrorInvalidConfiguration, bytes};
+    }
+    return {e == cudaSuccess ? cudaErrorInvalidConfiguration : e, 0};
+  }();
+  *pad = found.second;
+  return found.first;
+}
 
 }  // namespace
 
@@ -218,6 +301,35 @@ extern "C" int rtvqa_adm_scale(const void* ref, const void* dis, int is_u8, int 
   }
   RTVQA_LAUNCH_CHECK();
   reduce_rows_kernel<<<b * kAdmQ, kThreads, 0, stream>>>(part, n_tiles, sums);
+  RTVQA_LAUNCH_CHECK();
+  return 0;
+}
+
+// Kernel 6a. ref/dis as for rtvqa_adm_scale; strip, n_strips, st_cap8: the
+// TPU strip plan (kernels/adm.py::adm_strip_plan). part: b * adm_tiles
+// doubles (rtvqa_adm_scratch(b, h, w) / 6 suffices). Output: sums (b,) f64.
+// Returns cudaErrorInvalidConfiguration if no padding gives 6a kernel 6's
+// blocks per SM, else as rtvqa_adm_scale.
+extern "C" int rtvqa_adm_input(const void* ref, const void* dis, int is_u8, int b, int h, int w,
+                               int strip, int n_strips, int st_cap8, double* part, double* sums,
+                               void* stream_ptr) {
+  if (b == 0) return 0;
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int n_tiles = adm_tiles(h, w);
+  int pad = 0;
+  const cudaError_t e = is_u8 ? adm_input_pad<uint8_t>(&pad) : adm_input_pad<float>(&pad);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (is_u8) {
+    adm_input_kernel<uint8_t><<<adm_grid(b, h, w), kThreads, pad, stream>>>(
+        static_cast<const uint8_t*>(ref), static_cast<const uint8_t*>(dis), h, w, strip, n_strips,
+        st_cap8, part, n_tiles);
+  } else {
+    adm_input_kernel<float><<<adm_grid(b, h, w), kThreads, pad, stream>>>(
+        static_cast<const float*>(ref), static_cast<const float*>(dis), h, w, strip, n_strips,
+        st_cap8, part, n_tiles);
+  }
+  RTVQA_LAUNCH_CHECK();
+  reduce_rows_kernel<<<b, kThreads, 0, stream>>>(part, n_tiles, sums);
   RTVQA_LAUNCH_CHECK();
   return 0;
 }

@@ -148,6 +148,12 @@ def load_library() -> ctypes.CDLL:
         lib.rtvqa_adm_scale.argtypes = (
             [ptr, ptr] + [i32] * 4 + [ptr] + [f32] * 4 + [i32, i32, f32, i32] + [ptr] * 5)
         lib.rtvqa_adm_scale.restype = i32
+        lib.rtvqa_adm_input.argtypes = [ptr, ptr] + [i32] * 7 + [ptr] * 3
+        lib.rtvqa_adm_input.restype = i32
+        lib.rtvqa_strip_sum.argtypes = [ptr] + [i32] * 4 + [ptr] * 3
+        lib.rtvqa_strip_sum.restype = i32
+        lib.rtvqa_strip_floor.argtypes = [ptr] + [i32] * 4 + [ptr] * 3
+        lib.rtvqa_strip_floor.restype = i32
         _lib = lib
         return lib
 

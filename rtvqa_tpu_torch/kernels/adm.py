@@ -6,9 +6,11 @@ replaces ``adm_pallas.py::adm_tail_pallas`` by launching the same per-scale
 kernel for scales 1-3 on the f32 approximation bands. The kernel returns
 the six center-crop L3 sums per frame; the cube roots and the per-band
 ``cbrt(area/32)`` offsets are taken here, after the sums, by the same
-``vmaf.adm.pool_scale`` as the plain versions. The wrappers take the plain
-versions only for tensors on the CPU; for CUDA tensors they launch the
-kernel or raise.
+``vmaf.adm.pool_scale`` as the plain versions. ``adm_input_cuda`` (kernel
+6a) replaces ``adm_scale_pallas(..., stages=0)``: kernel 6's input path
+and a checksum only, to time what kernel 6 pays to load its windows. The
+wrappers take the plain versions only for tensors on the CPU; for CUDA
+tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -48,13 +50,17 @@ def adm_tail_plain(a_ref, a_dis, egl=None) -> dict:
     return {"num": num, "den": den}
 
 
+def _check_pair(ref, dis) -> None:
+    if ref.shape != dis.shape or ref.dtype != dis.dtype or ref.device != dis.device:
+        raise ValueError(f"ref/dis must match: {tuple(ref.shape)} {ref.dtype} vs "
+                         f"{tuple(dis.shape)} {dis.dtype}")
+
+
 def _launch(ref, dis, scale: int, egl):
     """One per-scale launch: (six (B,) f32 sums, a_ref, a_dis)."""
     require_cuda("ref", ref, (torch.uint8, torch.float32), 3)
     require_cuda("dis", dis, (torch.uint8, torch.float32), 3)
-    if ref.shape != dis.shape or ref.dtype != dis.dtype or ref.device != dis.device:
-        raise ValueError(f"ref/dis must match: {tuple(ref.shape)} {ref.dtype} vs "
-                         f"{tuple(dis.shape)} {dis.dtype}")
+    _check_pair(ref, dis)
     b, h, w = ref.shape
     h2, w2 = (h + 1) // 2, (w + 1) // 2
     ys, xs = _center_crop_slices(h2, w2)
@@ -104,5 +110,71 @@ def adm_tail_cuda(a_ref, a_dis, egl=None) -> dict:
     return {"num": num, "den": den}
 
 
+def adm_strip_plan(h: int, w: int) -> tuple[int, int, int]:
+    """(strip, n_strips, st_cap8) of the TPU kernel's strip plan for an
+    (h, w) input (``adm_pallas.py::adm_scale_pallas``, the strip choice and
+    the edge-padded row count ``h_arr``): strip s reads raw rows from
+    ``st_s = clip(floor((2*s*strip - 4) / 8), 0, st_cap8) * 8``."""
+    h2 = (h + 1) // 2
+    strip = 24 if w >= 1536 else (64 if w >= 640 else 128)
+    while strip > 16 and strip - h2 >= 16:
+        strip //= 2
+    while strip > 8 and 2 * strip + 16 > h:
+        strip //= 2
+    rows_in = 2 * strip + 16
+    h_arr = max(-(-h // 8) * 8, rows_in)
+    return strip, -(-h2 // strip), (h_arr - rows_in) // 8
+
+
+def adm_strip_rows(h: int, w: int) -> list[int]:
+    """The raw row ``st_s`` of every strip of the plan (each < h)."""
+    strip, n_strips, st_cap8 = adm_strip_plan(h, w)
+    return [min(max((2 * s * strip - 4) // 8, 0), st_cap8) * 8 for s in range(n_strips)]
+
+
+def adm_input_plain(ref, dis):
+    """(num (B,), den (B,), a_ref, a_dis) of ``adm_scale_pallas(ref, dis, 0,
+    stages=0)``: num is the checksum ``sum_s ref[:, st_s, 0] + dis[:, st_s,
+    0]`` over the strip plan, den is 0 and the planes are zero
+    (B, ceil(H/2), ceil(W/2)) views of one zero. Sums in float64."""
+    _check_pair(ref, dis)
+    b, h, w = ref.shape
+    rows = torch.tensor(adm_strip_rows(h, w), device=ref.device)
+    num = (ref[:, rows, 0].double() + dis[:, rows, 0].double()).sum(dim=1).float()
+    return _input_outputs(num, h, w)
+
+
+def _input_outputs(num, h: int, w: int):
+    zero = num.new_zeros(())
+    planes = zero.expand(num.shape[0], (h + 1) // 2, (w + 1) // 2)
+    return num, zero.expand(num.shape[0]), planes, planes
+
+
+def adm_input_cuda(ref, dis):
+    """Kernel 6a (uint8 or f32 pair): kernel 6's input path and the
+    checksum; the same outputs as :func:`adm_input_plain`."""
+    if ref.device.type == "cpu":
+        return adm_input_plain(ref, dis)
+    require_cuda("ref", ref, (torch.uint8, torch.float32), 3)
+    require_cuda("dis", dis, (torch.uint8, torch.float32), 3)
+    _check_pair(ref, dis)
+    b, h, w = ref.shape
+    strip, n_strips, st_cap8 = adm_strip_plan(h, w)
+    dev = ref.device
+    lib = load_library()
+    part = torch.empty((max(lib.rtvqa_adm_scratch(b, h, w) // 6, 1),), dtype=torch.float64, device=dev)
+    sums = torch.empty((b,), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.rtvqa_adm_input(
+            ref.data_ptr(), dis.data_ptr(), int(ref.dtype == torch.uint8), b, h, w,
+            strip, n_strips, st_cap8, part.data_ptr(), sums.data_ptr(), stream,
+        )
+    check_launch(lib, code, "adm_input")
+    adm_input_cuda.launches += 1
+    return _input_outputs(sums.float(), h, w)
+
+
 adm_scale_cuda.launches = 0
 adm_tail_cuda.launches = 0
+adm_input_cuda.launches = 0

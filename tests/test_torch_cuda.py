@@ -17,7 +17,8 @@ rel 2e-4 at scale 0, 3e-4 after, its planes as the decimated ones); ADM
 num/den rel 2e-4, the
 approximation bands rel 1e-4 / abs 1e-3, adm2 rel 3e-4. The kernels sum
 per tile in float64 where the plain ops sum in f32, so the sums differ by
-f32 rounding; repeat runs of a kernel are bit-identical.
+f32 rounding; repeat runs of a kernel are bit-identical. The probe
+kernels: 6a and 9 exact, 8 rel 1e-6 (scripts/probe_int8_dma.py's check).
 """
 
 import numpy as np
@@ -301,3 +302,98 @@ def test_wide_chunk_kernel_body_matches_plain(dev, b, h, w):
         tol = 1e-6 if key.startswith(("mse", "psnr")) else 3e-4
         assert _rel(got[i], want[i]) < tol, key
     assert torch.equal(blur_k, blur_p)
+
+
+ADM_INPUT_CASES = [((2, 72, 160), "u8"), ((1, 100, 130), "u8"), ((2, 64, 200), "f32"),
+                   ((1, 33, 40), "u8"), ((64, 1080, 1920), "u8")]
+
+
+@pytest.mark.parametrize("shape,kind", ADM_INPUT_CASES)
+def test_adm_input_kernel_matches_plain(dev, shape, kind):
+    """Kernel 6a: the checksum, the zero den and planes equal the plain
+    version's exactly (u8 sums and eighth-integer f32 sums are exact)."""
+    from rtvqa_tpu_torch.kernels.adm import adm_input_cuda, adm_input_plain
+
+    rng = np.random.default_rng(20)
+    if kind == "u8":
+        ref, dis = (torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev) for _ in range(2))
+    else:
+        ref, dis = (torch.from_numpy((rng.integers(0, 2040, shape) / 8).astype(np.float32)).to(dev)
+                    for _ in range(2))
+    before = adm_input_cuda.launches
+    got = adm_input_cuda(ref, dis)
+    torch.cuda.synchronize()
+    assert adm_input_cuda.launches == before + 1
+    for g, p in zip(got, adm_input_plain(ref, dis)):
+        assert g.shape == p.shape and torch.equal(g, p)
+
+
+# Seeded inputs of kernel 6's per-scale launch: u8 1080p at scale 0, odd u8
+# with a gain limit, odd f32 at scale 1.
+ADM_DIGEST_CASES = [(30, (2, 1080, 1920), False, None, 0), (31, (2, 50, 71), False, 1.0, 0),
+                    (32, (2, 53, 71), True, None, 1)]
+# sha256 of the raw outputs of adm.py::_launch on ADM_DIGEST_CASES, as the
+# kernel gave them before its staging loop became adm_stage_window: commit
+# abb6119's sources, with adm_kernel_digest loaded by path, printed it on an
+# H100.
+ADM_SCALE_DIGEST = "38fc2b067ccc64a090eecd852a0668d6d005de7c213bdd880e0c82d90503f2ea"
+
+
+def adm_kernel_digest(dev) -> str:
+    """sha256 over the six f32 sums and the two approximation planes of
+    every launch in ADM_DIGEST_CASES."""
+    import hashlib
+
+    from rtvqa_tpu_torch.kernels.adm import _launch
+
+    digest = hashlib.sha256()
+    for seed, shape, as_f32, egl, scale in ADM_DIGEST_CASES:
+        x = _quality_inputs(np.random.default_rng(seed), *shape, dev)
+        ref, dis = (x[0].float(), x[3].float()) if as_f32 else (x[0], x[3])
+        sums, a_ref, a_dis = _launch(ref, dis, scale, egl)
+        for t in (*sums, a_ref, a_dis):
+            digest.update(t.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def test_adm_scale_kernel_unchanged(dev):
+    """Kernel 6 gives the same bits as before kernel 6a came to share its
+    input path."""
+    assert adm_kernel_digest(dev) == ADM_SCALE_DIGEST
+
+
+@pytest.mark.parametrize("shape", [(2, 72, 256), (3, 104, 130), (1, 48, 7), (16, 1080, 1920)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_strip_sum_kernel_matches_plain(dev, shape, dtype):
+    """Kernel 8 against its plain version (rel 1e-6, the script's check;
+    exact here, as the values are integers), and repeat runs bit-equal."""
+    from rtvqa_tpu_torch.kernels.probes import strip_sum_cuda, strip_sum_plain
+
+    x = torch.from_numpy(np.random.default_rng(21).integers(0, 256, shape, np.uint8)).to(dev).to(dtype)
+    before = strip_sum_cuda.launches
+    got, again = strip_sum_cuda(x), strip_sum_cuda(x)
+    torch.cuda.synchronize()
+    assert strip_sum_cuda.launches == before + 2
+    want = strip_sum_plain(x)
+    assert got.shape == (shape[0],) and _rel(got, want) < 1e-6
+    assert torch.equal(got, again)
+    # An unaligned start: the same frames one byte / element into storage.
+    flat = torch.cat([x.new_zeros(1), x.flatten()])
+    torch.testing.assert_close(strip_sum_cuda(flat[1:].view(shape)), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 104, 256), (3, 152, 131), (128, 1088, 2176)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+def test_strip_floor_kernel_matches_plain(dev, shape, dtype):
+    """Kernel 9 against its plain version, exactly; a window past H raises."""
+    from rtvqa_tpu_torch.kernels.probes import strip_floor_cuda, strip_floor_plain
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = (torch.rand(shape, generator=gen, device=dev) * 255.0).to(dtype)
+    before = strip_floor_cuda.launches
+    got = strip_floor_cuda(x)
+    torch.cuda.synchronize()
+    assert strip_floor_cuda.launches == before + 1
+    assert torch.equal(got, strip_floor_plain(x))
+    with pytest.raises(ValueError, match="window"):
+        strip_floor_cuda(x[:, :96].contiguous())

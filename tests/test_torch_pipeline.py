@@ -118,15 +118,33 @@ def test_cli_json_line(env, capsys):
 
 @pytest.mark.parametrize("flag", [["--sweep"], ["--sweep", "18", "28"], ["--sharded"], ["--trace", "t"]])
 def test_cli_refuses_unported_modes(env, tmp_path, capsys, flag):
-    """``--sharded`` and ``--trace`` are still refused. ``--sweep`` runs the
-    CRF ladder (the default one when bare): its rows and manifest equal
-    ``rtvqa_tpu.pipeline.sweep.run_sweep``'s, and a rerun skips every item."""
+    """``--sharded`` is still refused. ``--trace DIR`` writes a non-empty
+    trace directory and the same CSV row as the run without it. ``--sweep``
+    runs the CRF ladder (the default one when bare): its rows and manifest
+    equal ``rtvqa_tpu.pipeline.sweep.run_sweep``'s, and a rerun skips every
+    item."""
     from rtvqa_tpu.pipeline.sweep import DEFAULT_CRF_LADDER, run_sweep
     from rtvqa_tpu_torch.cli import main as torch_main
 
-    if flag[0] != "--sweep":
+    if flag[0] == "--sharded":
         with pytest.raises(NotImplementedError, match="not ported"):
             torch_main([str(env["dir"] / "torch.json"), env["clip"], *flag])
+        return
+    if flag[0] == "--trace":
+        trace_dir = tmp_path / flag[1]
+        rows = {}
+        for name, extra in (("traced", [*flag[:1], str(trace_dir)]), ("plain", [])):
+            cfg = {"crf": 20, "resize_width": 32, "resize_height": 32, "frame_interval": 3,
+                   "quality_backend": "none", "csv_file": str(tmp_path / f"{name}.csv")}
+            with open(tmp_path / f"{name}.json", "w") as f:
+                json.dump(cfg, f)
+            assert torch_main([str(tmp_path / f"{name}.json"), env["clip"], *extra, "--device", "cpu"]) == 0
+            (rows[name],) = read_rows(cfg["csv_file"])
+        assert rows["traced"] == rows["plain"]
+        found = [f for _, _, fs in os.walk(trace_dir) for f in fs]
+        assert found and all(os.path.getsize(trace_dir / f) > 0 for f in found)
+        with open(trace_dir / found[0]) as f:
+            assert json.load(f)["traceEvents"]
         return
     ladder = tuple(int(c) for c in flag[1:]) or DEFAULT_CRF_LADDER
     cfg = {"resize_width": 32, "resize_height": 32, "frame_interval": 3, "quality_backend": "none",
