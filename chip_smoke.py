@@ -15,7 +15,9 @@ cannot decode there):
   the plain versions;
 * quality (``quality_backend: "native"``): the four quality kernels
   against their plain versions at one 64-frame chunk (ref and a noisy
-  dis), the kernel chunk body against the NumPy oracles of PSNR, SSIM and
+  dis), the fused quality kernel also on 64 frames with flat regions
+  (flat quadrants; letterbox bars), the kernel chunk body against the
+  NumPy oracles of PSNR, SSIM and
   ADM on a small input, then the streaming chunk loop
   (``metrics.full_reference._quality_chunk_loop`` + ``pool_full_reference``,
   what ``analyze_full_reference`` runs after decoding) over 128 frames in
@@ -37,9 +39,10 @@ cannot decode there):
 * the measurement path (``trace`` and ``probes``): the quality loop once
   under ``obs/profiler.py::device_trace``, whose exported trace must name
   every ``__global__`` kernel of the route; kernels 6a (ADM scale 0's input
-  path, beside kernel 6 on the 64-frame 1080p chunk), 8 (strip windows, u8
-  and f32, 16x1080x1920) and 9 (the strip-read floor, f32/bf16/u8,
-  128x1088x2176) against their plain versions, then the three entry points
+  path, beside kernel 6 on the 64-frame 1080p chunk), 8 (per-frame strip
+  sums, u8 and f32, 16x1080x1920) and 9 (the strip-read floor,
+  f32/bf16/u8, 128x1088x2176) against their plain versions, then the three
+  entry points
   ``python -m rtvqa_tpu_torch.probes.{adm_stages,int8_dma,dma_floor}`` at
   their default shapes.
 
@@ -96,8 +99,15 @@ ADM_RTOL = 2e-4
 ADM2_RTOL = 3e-4
 VMAF_RTOL = 3e-4               # pooled VMAF: the widest of its features' tolerances
 STRIP_SUM_RTOL = 1e-6         # scripts/probe_int8_dma.py's own check
+# Kernel 3 on content with flat regions: quadrant levels, letterbox bars of
+# a 2.39:1 picture in 1080 rows; the luma kernel's tile (kLumaTH x kLumaTW)
+# and flat-window test (kFlatTol), from csrc/quality.cu.
+FLAT_LEVELS = (255, 128, 16, 235)
+BAR_ROWS = 138
+LUMA_TILE = (8, 240)
+FLAT_TOL = 1e-4
 # The quality route's __global__ kernels, which the trace must name.
-ROUTE_KERNELS = ("ssim_sse_kernel", "blur_sad_kernel", "vif_stats_kernel", "filter_decimate_kernel",
+ROUTE_KERNELS = ("quality_luma_kernel", "ssim_sse_kernel", "vif_stats_kernel", "filter_decimate_kernel",
                  "adm_scale_kernel", "reduce_rows_kernel")
 # Against the NumPy oracles: tests/test_quality.py (MSE, SSIM), test_vmaf.py (ADM).
 ORACLE_MSE_RTOL, ORACLE_SSIM_ATOL, ORACLE_ADM_RTOL = 1e-5, 1e-4, 5e-4
@@ -351,6 +361,31 @@ def phase_suite(dev, y, u, v) -> dict:
     return launches
 
 
+def check_quality_fused(label, got, want, h, w, hc, wc) -> dict:
+    """Kernel 3's outputs on (h, w) luma and (hc, wc) chroma against its
+    plain version's with the tolerances above; returns the max abs error of
+    each output (SSE and SAD as means per pixel, SSIM as the mean over
+    windows)."""
+    n_win = {"y": (h // 4 - 1) * (w // 4 - 1), "u": (hc // 4 - 1) * (wc // 4 - 1)}
+    n_win["v"] = n_win["u"]
+    errs = {}
+    for p, n_pix in (("y", h * w), ("u", hc * wc), ("v", hc * wc)):
+        check_close(f"{label} sse_{p}", got[f"sse_{p}"], want[f"sse_{p}"], rtol=SSE_RTOL)
+        errs[f"mse_{p}"] = max_abs(got[f"sse_{p}"] / n_pix, want[f"sse_{p}"] / n_pix)
+        gs, ws = got[f"ssim_{p}_sum"] / n_win[p], want[f"ssim_{p}_sum"] / n_win[p]
+        check_close(f"{label} ssim_{p} mean", gs, ws, atol=SSIM_ATOL)
+        errs[f"ssim_{p}"] = max_abs(gs, ws)
+    check_close(f"{label} vif_scale0", got["vif_scale0"], want["vif_scale0"], rtol=VIF0_RTOL)
+    check_close(f"{label} sad_sum", got["sad_sum"], want["sad_sum"], rtol=SAD_RTOL, atol=SAD_ATOL)
+    check_close(f"{label} blur_carry", got["blur_carry"], want["blur_carry"], atol=BLUR_ATOL)
+    for key in ("dec_ref", "dec_dis"):
+        check_close(f"{label} {key}", got[key], want[key], rtol=PLANE_RTOL, atol=PLANE_ATOL)
+    errs["sad_mean"] = max_abs(got["sad_sum"] / (h * w), want["sad_sum"] / (h * w))
+    for key in ("vif_scale0", "blur_carry", "dec_ref", "dec_dis"):
+        errs[key] = max_abs(got[key], want[key])
+    return errs
+
+
 def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
     """The four quality kernels against their plain versions on one chunk."""
     from rtvqa_tpu_torch.kernels.adm import (
@@ -359,7 +394,11 @@ def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
         adm_tail_cuda,
         adm_tail_plain,
     )
-    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda, quality_fused_plain
+    from rtvqa_tpu_torch.kernels.quality import (
+        quality_fused_cuda,
+        quality_fused_plain,
+        quality_luma_occupancy,
+    )
     from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda, vif_tail_plain
     from rtvqa_tpu_torch.obs.roofline import (
         adm_scale0_work,
@@ -367,7 +406,7 @@ def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
         quality_work,
         vif_tail_work,
     )
-    from rtvqa_tpu_torch.probes import time_ms
+    from rtvqa_tpu_torch.probes import device_ms, fmt_ms, time_ms
     from rtvqa_tpu_torch.vmaf.filters import filter1d_sep
     from rtvqa_tpu_torch.vmaf.motion import FILTER_5
 
@@ -383,32 +422,27 @@ def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
     # Kernel 3: the per-frame pass.
     got, want = quality_fused_cuda(*args), quality_fused_plain(*args)
     torch.cuda.synchronize()
-    n_win = {"y": (h // 4 - 1) * (w // 4 - 1), "u": (hc // 4 - 1) * (wc // 4 - 1)}
-    n_win["v"] = n_win["u"]
-    errs = {}
-    for p, n_pix in (("y", h * w), ("u", hc * wc), ("v", hc * wc)):
-        check_close(f"sse_{p}", got[f"sse_{p}"], want[f"sse_{p}"], rtol=SSE_RTOL)
-        errs[f"mse_{p}"] = max_abs(got[f"sse_{p}"] / n_pix, want[f"sse_{p}"] / n_pix)
-        gs, ws = got[f"ssim_{p}_sum"] / n_win[p], want[f"ssim_{p}_sum"] / n_win[p]
-        check_close(f"ssim_{p} mean", gs, ws, atol=SSIM_ATOL)
-        errs[f"ssim_{p}"] = max_abs(gs, ws)
-    check_close("vif_scale0", got["vif_scale0"], want["vif_scale0"], rtol=VIF0_RTOL)
-    check_close("sad_sum", got["sad_sum"], want["sad_sum"], rtol=SAD_RTOL, atol=SAD_ATOL)
-    check_close("blur_carry", got["blur_carry"], want["blur_carry"], atol=BLUR_ATOL)
-    for key in ("dec_ref", "dec_dis"):
-        check_close(key, got[key], want[key], rtol=PLANE_RTOL, atol=PLANE_ATOL)
-    errs["sad_mean"] = max_abs(got["sad_sum"] / (h * w), want["sad_sum"] / (h * w))
-    for key in ("vif_scale0", "blur_carry", "dec_ref", "dec_dis"):
-        errs[key] = max_abs(got[key], want[key])
+    errs = check_quality_fused("quality_fused", got, want, h, w, hc, wc)
+    again = quality_fused_cuda(*args)
+    torch.cuda.synchronize()
+    for key, v in got.items():
+        if not torch.equal(v, again[key]):
+            raise AssertionError(f"quality_fused {key}: a repeat call gave other bits")
+    del again
     ms = time_ms(lambda _: quality_fused_cuda(*args), [None], 10, dev)
+    dev_ms = device_ms(lambda _: quality_fused_cuda(*args), [None], 10, dev)
     plain_ms = time_ms(lambda _: quality_fused_plain(*args), [None], 2, dev)
     mem = (peak_gib(lambda: quality_fused_cuda(*args)), peak_gib(lambda: quality_fused_plain(*args)))
+    rec = record("quality_fused", "rtvqa_tpu_torch/csrc/quality.cu",
+                 "rtvqa_tpu/kernels/quality_pallas.py:635", max(errs.values()), ms,
+                 plain_ms, quality_work(b, h, w, hc, wc))
     print(f"quality_fused: {tuple(ry.shape)} max abs errs {json.dumps(errs)} "
-          f"(vif_scale0 rel {max_rel(got['vif_scale0'], want['vif_scale0']):.3g}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; peak {mem[0]:.2f} vs {mem[1]:.2f} GiB")
-    records.append(record("quality_fused", "rtvqa_tpu_torch/csrc/quality.cu",
-                          "rtvqa_tpu/kernels/quality_pallas.py:635", max(errs.values()), ms,
-                          plain_ms, quality_work(b, h, w, hc, wc)))
+          f"(vif_scale0 rel {max_rel(got['vif_scale0'], want['vif_scale0']):.3g}); repeat bit-equal; "
+          f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}; {rec['bound_ms'] / ms:.1%} of the bound "
+          f"{rec['bound_ms']:.4f}), plain {plain_ms:.4f} ms; peak {mem[0]:.2f} vs {mem[1]:.2f} GiB; "
+          f"luma kernel {json.dumps(quality_luma_occupancy(dev))}")
+    profile_device("quality_fused, one call", lambda: quality_fused_cuda(*args))
+    records.append(rec)
 
     # Kernel 5: VIF scales 1-3 on the kernel's scale-1 pair.
     dec = (got["dec_ref"], got["dec_dis"])
@@ -466,6 +500,84 @@ def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
                           "rtvqa_tpu/kernels/adm_pallas.py:886", err, ms, plain_ms,
                           adm_tail_work(*a_ref.shape)))
     return records
+
+
+def content_frames(kind: str, n: int, h: int, w: int, seed: int):
+    """(ref, dis) YUV420 planes with flat regions, where kernel 3 redoes
+    the VIF moments of a tile in the plain version's order. ``flat``: ref
+    luma one level per quadrant (FLAT_LEVELS) with one textured square that
+    moves a pixel per frame; dis = ref + noise on the left half, = ref on
+    the right (``tests/test_torch_cuda.py::_flat_inputs`` at full size).
+    ``letterbox``: the gradient + noise frames with black bars of BAR_ROWS
+    rows at the top and bottom (Y 16, U and V 128), equal in ref and dis."""
+    rng = np.random.default_rng(seed)
+    if kind == "flat":
+        y = np.empty((n, h, w), np.uint8)
+        for k, (ys, xs) in enumerate(((slice(0, h // 2), slice(0, w // 2)), (slice(0, h // 2), slice(w // 2, w)),
+                                      (slice(h // 2, h), slice(0, w // 2)), (slice(h // 2, h), slice(w // 2, w)))):
+            y[:, ys, xs] = FLAT_LEVELS[k]
+        side = min(h, w) // 4
+        tex = rng.integers(0, 256, (side, side + n), dtype=np.uint8)
+        for i in range(n):
+            y[i, h // 3:h // 3 + side, w // 3:w // 3 + side] = tex[:, i:i + side]
+        ref = (y, *(rng.integers(100, 156, (n, h // 2, w // 2), np.uint8) for _ in range(2)))
+        dis = distort(ref, seed + 1)
+        dis[0][:, :, w // 2:] = y[:, :, w // 2:]
+        return ref, dis
+    ref = make_frames(n, h, w, seed)
+    dis = distort(ref, seed + 1)
+    for planes in (ref, dis):
+        for a, level in zip(planes, (16, 128, 128)):
+            bar = BAR_ROWS * a.shape[1] // h
+            a[:, :bar] = level
+            a[:, a.shape[1] - bar:] = level
+    return ref, dis
+
+
+def flat_tile_share(ry) -> float:
+    """Share of the luma kernel's (frame, tile) steps with a pixel whose ref
+    window is flat by the kernel's test, sigma1^2 < FLAT_TOL * E[x^2], on
+    the plain version's moments: the share of steps that redo their VIF
+    moments (an estimate: the kernel tests its own FMA moments)."""
+    from rtvqa_tpu_torch.kernels.quality import TAPS17
+    from rtvqa_tpu_torch.vmaf.filters import filter1d_sep
+
+    x = ry.float()
+    mu, e2 = filter1d_sep(x, TAPS17), filter1d_sep(x * x, TAPS17)
+    flat = ((e2 - mu * mu) < FLAT_TOL * e2).float()
+    b, h, w = flat.shape
+    th, tw = LUMA_TILE
+    flat = torch.nn.functional.pad(flat, (0, -w % tw, 0, -h % th))
+    return float(flat.view(b, -(-h // th), th, -(-w // tw), tw).amax(dim=(2, 4)).mean())
+
+
+def phase_quality_content(dev, b: int, gradient_rec: dict) -> None:
+    """Kernel 3 at b x H x W on content with flat regions (content_frames):
+    held against its plain version, timed beside the gradient + noise
+    frames' time, with the share of tile steps that redo their VIF moments."""
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda, quality_fused_plain
+    from rtvqa_tpu_torch.probes import device_ms, fmt_ms, time_ms
+
+    line = []
+    for k, kind in enumerate(("flat", "letterbox")):
+        ref, dis = content_frames(kind, b, H, W, SEED + 20 + k)
+        planes = [torch.from_numpy(a).to(dev) for a in (*ref, *dis)]
+        args = (planes[0], planes[1], planes[2], planes[3], planes[4], planes[5],
+                torch.zeros((H, W), dtype=torch.float32, device=dev))
+        got, want = quality_fused_cuda(*args), quality_fused_plain(*args)
+        torch.cuda.synchronize()
+        errs = check_quality_fused(f"quality_fused {kind}", got, want, H, W, H // 2, W // 2)
+        rel = max_rel(got["vif_scale0"], want["vif_scale0"])
+        del got, want
+        share = flat_tile_share(planes[0])
+        ms = time_ms(lambda _: quality_fused_cuda(*args), [None], 10, dev)
+        dev_ms = device_ms(lambda _: quality_fused_cuda(*args), [None], 10, dev)
+        line.append(f"{kind} {ms:.4f} ms (device {fmt_ms(dev_ms)}; {share:.1%} of tile steps flat; "
+                    f"vif_scale0 rel {rel:.3g}, max abs errs {json.dumps(errs)})")
+        del planes, args
+        torch.cuda.empty_cache()
+    print(f"quality_fused content: {(b, H, W)} against plain within the tolerances; gradient + noise "
+          f"{gradient_rec['ms']:.4f} ms; " + "; ".join(line))
 
 
 def phase_quality_oracle(dev) -> None:
@@ -574,11 +686,18 @@ def check_launches(label, launches: dict, at_least: dict, exactly: dict | None =
 
 
 def counted_run(kernels, fn):
-    """Set every kernel's count to 0, run ``fn`` (timed), read the counts."""
+    """Set every kernel's count to 0, run ``fn`` (timed), read the counts; a
+    wrapper that also counts its launches by input type adds one entry
+    ``name[type]`` per type."""
     for k in kernels:
         k.launches = 0
+        if hasattr(k, "launches_by_type"):
+            k.launches_by_type = dict.fromkeys(k.launches_by_type, 0)
     out, t = wall_s(fn)
-    return out, t, {k.__name__: k.launches for k in kernels}
+    counts = {k.__name__: k.launches for k in kernels}
+    for k in kernels:
+        counts.update({f"{k.__name__}[{kind}]": n for kind, n in getattr(k, "launches_by_type", {}).items()})
+    return out, t, counts
 
 
 def quality_kernels():
@@ -812,7 +931,6 @@ def phase_probes(dev, ref_y, dis_y) -> list[dict]:
         adm_input_work,
         strip_floor_windows,
         strip_floor_work,
-        strip_sum_windows,
         strip_sum_work,
     )
     from rtvqa_tpu_torch.probes import adm_stages, device_ms, dma_floor, fmt_ms, int8_dma, time_ms
@@ -845,7 +963,7 @@ def phase_probes(dev, ref_y, dis_y) -> list[dict]:
     def library(x):
         return torch.sum(x, (1, 2), dtype=torch.float32)
 
-    rec8, line = None, []
+    rec8, line = [], []
     for name, inputs in (("u8", xs), ("f32", [x.float() for x in xs])):
         got, want = strip_sum_cuda(inputs[0]), strip_sum_plain(inputs[0])
         torch.cuda.synchronize()
@@ -857,10 +975,10 @@ def phase_probes(dev, ref_y, dis_y) -> list[dict]:
         rec = record(f"strip_sum_{name}", "rtvqa_tpu_torch/csrc/probes.cu",
                      "scripts/probe_int8_dma.py:68", max_abs(got, want), ms, plain_ms,
                      strip_sum_work(*shape8, inputs[0].element_size()), lib_ms)
-        rec8 = rec8 or rec
-        windows = strip_sum_windows(*shape8, inputs[0].element_size())
+        rec8.append(rec)
+        frames = strip_sum_work(*shape8, inputs[0].element_size())[0]
         line.append(f"{name} kernel {ms:.4f} ms (device {fmt_ms(dev_ms[0])}; bound {rec['bound_ms']:.4f}, "
-                    f"{rec['bound_ms'] / ms:.1%} of it; windows read at {windows / ms / 1e6:.1f} GB/s; "
+                    f"{rec['bound_ms'] / ms:.1%} of it; frames read at {frames / ms / 1e6:.1f} GB/s; "
                     f"rel err {max_rel(got, want):.3g}), plain {plain_ms:.4f}, torch.sum {lib_ms:.4f} "
                     f"(device {fmt_ms(dev_ms[1])})")
     print(f"strip_sum: {shape8}: " + "; ".join(line))
@@ -896,13 +1014,14 @@ def phase_probes(dev, ref_y, dis_y) -> list[dict]:
         kernels, lambda: [m.main(["--reps", "5"]) for m in (adm_stages, int8_dma, dma_floor)])
     if any(rcs):
         raise AssertionError(f"probe entry points returned {rcs}")
-    check_launches("probes", launches, {k.__name__: 1 for k in kernels})
+    check_launches("probes", launches, {k: 1 for k in launches})
     print(f"probes: adm_stages, int8_dma, dma_floor at their default shapes in {t:.4f} s; "
           f"launches {launches}")
     torch.cuda.empty_cache()
-    for rec, wrapper in ((rec6a, "adm_input_cuda"), (rec8, "strip_sum_cuda"), (rec9, "strip_floor_cuda")):
+    for rec, wrapper in ((rec6a, "adm_input_cuda"), (rec8[0], "strip_sum_cuda[u8]"),
+                         (rec8[1], "strip_sum_cuda[f32]"), (rec9, "strip_floor_cuda")):
         rec["launches"] = launches[wrapper]
-    return [rec6a, rec8, rec9]
+    return [rec6a, *rec8, rec9]
 
 
 def main() -> int:
@@ -935,6 +1054,7 @@ def main() -> int:
     first = slice(0, auto_chunk(W, H))
     quality_recs = phase_quality_kernels(dev, [a[first] for a in ref_np], [a[first] for a in dis_np])
     torch.cuda.empty_cache()
+    phase_quality_content(dev, first.stop, quality_recs[0])
     phase_quality_oracle(dev)
     launches, series = phase_quality(dev, ref_np, dis_np)
     for rec, wrapper in zip(quality_recs, ("quality_fused_cuda", "vif_tail_cuda",

@@ -6,32 +6,49 @@
 //
 // Replaces: rtvqa_tpu/kernels/quality_pallas.py::quality_fused_pallas
 // (kernel body _fused_q_kernel). The TPU kernel did all of this in one
-// strip pass because each Mosaic grid cell cost ~15 us and it evaluated
-// every filter as banded MXU matmuls; it carried the previous frame's blur
-// in VMEM across sequentially ordered grid cells. A CUDA grid has no order,
-// and on Hopper a stencil is a shared-memory tile, so the pass is split
-// into one simple tiled kernel per job, each reading its inputs once per
-// tile:
-//  * ssim_sse_kernel (launched for Y, U and V): a 32 x 128-pixel tile plus
-//    a 4-pixel halo to shared memory; integer SSE of the core pixels;
-//    integer 4x4 block sums (exact); one 8x8 window per thread with x264's
-//    ssim_end1 in f32, in the plain version's order.
-//  * blur_sad_kernel: FILTER_5 blur of the tile for frame b and for frame
-//    b-1 (recomputed, identically, rather than carried: no ordering needed
-//    and no (B, H, W) scratch), frame 0 against prev_blur; |diff| summed;
-//    the last frame's blur is written out as the carry.
-//  * vif_stats_kernel<uint8_t, 8> and filter_decimate_kernel<uint8_t, 4>
-//    (csrc/common.cuh; the VIF tail reuses them at scales 1-3).
+// strip pass over an ordered grid, carrying the previous frame's blur in
+// VMEM and evaluating every filter as banded MXU matmuls. Here:
+//  * quality_luma_kernel: one block owns one kLumaTH x kLumaTW tile of the frame
+//    and walks a run of consecutive frames, so it stages each frame's u8
+//    ref/dis tile (plus halo) once and computes everything from it, and
+//    keeps its pixels' FILTER_5 blur in registers from one frame to the
+//    next (a run that starts at frame b0 > 0 first blurs frame b0 - 1;
+//    frame 0 is compared with prev_blur; the chunk's last frame writes the
+//    carry). Staging: the 16-byte row pieces inside the frame are copied
+//    with cp.async into the other of two buffers while the current frame
+//    computes; a tile at a border then fills its pieces outside the frame
+//    by mirroring staged bytes in shared memory (frames whose rows are not
+//    16-byte aligned gather every piece from global memory instead). Each
+//    staged pixel is converted to f32 and its moment products x^2, y^2, xy
+//    are formed once. Stencils are register-blocked: in the vertical pass a
+//    thread owns one column and keeps the 8 output rows of all five
+//    moments in registers, so each staged word is read once per column; in
+//    the horizontal pass a thread computes a run of 8 outputs of one row
+//    from 16-byte loads of the (bank-conflict-free, padded) moment rows.
+//    Filter taps are FMAs. From the one staged tile: the integer-exact SSE
+//    and x264 4x4 block sums (as f32, exact below 2^24), the ssim_end1
+//    windows, the blur and SAD, VIF scale 0 and the 9-tap filter at the
+//    even rows and columns.
+//  * ssim_sse_kernel: the chroma planes' SSE and SSIM, U and V in one
+//    launch (a 32 x 128-pixel tile plus a 4-pixel halo per block).
 //  * reduce_rows_kernel: per-frame fixed-order sums of the per-tile
 //    partials (float64), so repeat runs give identical bits.
 //
+// Numerics. FMA taps round differently from the plain version's separate
+// multiply and add, which only moves results by f32 rounding, except where
+// the ref window is flat: there sigma1^2 = E[x^2] - mu1^2 is pure rounding
+// noise (up to ~1e-5 E[x^2]), so the plain version's noise, not the signal,
+// decides the sigma < 1e-10 branches and the log terms, and an FMA form
+// gives other noise (VIF scale 0 then misses its tolerance on frames with
+// large flat areas). So a tile in which any pixel has sigma1^2 < kFlatTol * E[x^2]
+// recomputes its VIF moments with separate multiplies and adds in the plain
+// version's order, whose per-pixel values equal the plain version's.
+//
 // Bound on the H100: operations. Per 64-frame 1080p chunk the pass moves
 // ~0.68 GB (u8 planes in, two f32 quarter-size planes and the carry out:
-// ~0.20 ms at 3.35 TB/s) but does ~450 f32 operations per luma pixel —
-// five 17-tap separable moment filters dominate — ~6e10 in all, ~0.9 ms at
-// 67 TFLOP/s. Taps are applied as separate multiplies and adds (no FMA), so
-// the kernel's per-pixel values equal the plain version's; that halves the
-// f32 rate and is the first thing to give up in a later, faster version.
+// ~0.20 ms at 3.35 TB/s) but does ~450 f32 operations per luma pixel (FMA
+// counted as two) — five 17-tap separable moment filters dominate — ~6e10
+// in all, ~0.85 ms at 67 TFLOP/s.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,36 +58,71 @@
 namespace {
 
 constexpr int kQ = 9;  // per-frame sums, in this order:
-constexpr int kSseY = 0, kSseU = 1, kSseV = 2, kSsimY = 3, kSsimU = 4, kSsimV = 5;
-constexpr int kSad = 6, kVifNum = 7;  // kVifNum + 1 = VIF den
+constexpr int kSseY = 0, kSseU = 1, kSsimY = 3, kSsimU = 4;  // then V at U + 1
+constexpr int kSad = 6, kVifNum = 7, kVifDen = 8;
 
 constexpr int kSsimC1 = 416;      // int(.01*.01*255*255*64 + .5)
 constexpr int kSsimC2 = 235963;   // int(.03*.03*255*255*64*63 + .5)
 
-// ----- SSE + x264 SSIM of one plane -----------------------------------------
+// x264's ssim_end1 of one 8x8 window's sums, in the plain version's order.
+__device__ __forceinline__ float ssim_end1(float w1, float w2, float wss, float w12) {
+  const float vars = sub(sub(mul(wss, 64.0f), mul(w1, w1)), mul(w2, w2));
+  const float covar = sub(mul(w12, 64.0f), mul(w1, w2));
+  const float num = mul(add(mul(mul(2.0f, w1), w2), static_cast<float>(kSsimC1)),
+                        add(mul(2.0f, covar), static_cast<float>(kSsimC2)));
+  const float den = mul(add(add(mul(w1, w1), mul(w2, w2)), static_cast<float>(kSsimC1)),
+                        add(vars, static_cast<float>(kSsimC2)));
+  return __fdiv_rn(num, den);
+}
+
+// Per-tile partial q of frame f in a (frames, kQ, n_tiles) array.
+__device__ __forceinline__ void put_part(double* part, int f, int q, int n_tiles, int tile, double v) {
+  part[(static_cast<size_t>(f) * kQ + q) * n_tiles + tile] = v;
+}
+
+// ----- SSE + x264 SSIM of the chroma planes ---------------------------------
 
 constexpr int kSsimBY = 8, kSsimBX = 32;              // windows per tile
 constexpr int kSsimPH = 4 * kSsimBY + 4;              // staged pixel rows
 constexpr int kSsimPW = 4 * kSsimBX + 4;              // staged pixel cols
 constexpr int kSsimNB = (kSsimBY + 1) * (kSsimBX + 1);  // 4x4 blocks staged
+static_assert(kSsimPW % 4 == 0, "staged rows are whole words");
 
+// blockIdx.z < b: frame blockIdx.z of (ref0, dis0) into q_sse/q_ssim; else
+// frame blockIdx.z - b of (ref1, dis1) into q_sse + 1/q_ssim + 1.
 __global__ void __launch_bounds__(kThreads)
-ssim_sse_kernel(const uint8_t* __restrict__ ref, const uint8_t* __restrict__ dis, int h, int w,
-                double* __restrict__ part, int n_q, int q_sse, int q_ssim, int n_tiles) {
-  __shared__ uint8_t sr[kSsimPH * kSsimPW];
-  __shared__ uint8_t sd[kSsimPH * kSsimPW];
+ssim_sse_kernel(const uint8_t* __restrict__ ref0, const uint8_t* __restrict__ dis0,
+                const uint8_t* __restrict__ ref1, const uint8_t* __restrict__ dis1, int b, int h,
+                int w, double* __restrict__ part, int q_sse, int q_ssim, int n_tiles) {
+  __shared__ __align__(4) uint8_t sr[kSsimPH * kSsimPW];
+  __shared__ __align__(4) uint8_t sd[kSsimPH * kSsimPW];
   __shared__ int bs[4][kSsimNB];
-  __shared__ double red[kThreads];
+  __shared__ double red[2][kThreads / 32];
 
   const int tid = threadIdx.x;
-  const size_t frame = static_cast<size_t>(blockIdx.z) * h * w;
+  const int plane = blockIdx.z >= b, f = blockIdx.z - plane * b;
+  const uint8_t* ref = plane ? ref1 : ref0;
+  const uint8_t* dis = plane ? dis1 : dis0;
+  const size_t frame = static_cast<size_t>(f) * h * w;
   const int y0 = blockIdx.y * 4 * kSsimBY, x0 = blockIdx.x * 4 * kSsimBX;
-  for (int i = tid; i < kSsimPH * kSsimPW; i += kThreads) {
-    const int y = y0 + i / kSsimPW, x = x0 + i % kSsimPW;
-    const bool in = y < h && x < w;
-    const size_t g = frame + static_cast<size_t>(y) * w + x;
-    sr[i] = in ? ref[g] : 0;
-    sd[i] = in ? dis[g] : 0;
+  if ((w & 3) == 0 && ((reinterpret_cast<uintptr_t>(ref) | reinterpret_cast<uintptr_t>(dis)) & 3) == 0) {
+    // 4-byte rows and bases: whole words, each inside the plane or past it.
+    constexpr int kWords = kSsimPW / 4;
+    for (int i = tid; i < kSsimPH * kWords; i += kThreads) {
+      const int y = y0 + i / kWords, x = x0 + 4 * (i % kWords);
+      const bool in = y < h && x < w;
+      const size_t g = frame + static_cast<size_t>(y) * w + x;
+      reinterpret_cast<uint32_t*>(sr)[i] = in ? *reinterpret_cast<const uint32_t*>(ref + g) : 0u;
+      reinterpret_cast<uint32_t*>(sd)[i] = in ? *reinterpret_cast<const uint32_t*>(dis + g) : 0u;
+    }
+  } else {
+    for (int i = tid; i < kSsimPH * kSsimPW; i += kThreads) {
+      const int y = y0 + i / kSsimPW, x = x0 + i % kSsimPW;
+      const bool in = y < h && x < w;
+      const size_t g = frame + static_cast<size_t>(y) * w + x;
+      sr[i] = in ? ref[g] : 0;
+      sd[i] = in ? dis[g] : 0;
+    }
   }
   __syncthreads();
 
@@ -88,11 +140,11 @@ ssim_sse_kernel(const uint8_t* __restrict__ ref, const uint8_t* __restrict__ dis
     for (int dy = 0; dy < 4; ++dy) {
       for (int dx = 0; dx < 4; ++dx) {
         const int p = (4 * by + dy) * kSsimPW + 4 * bx + dx;
-        const int a = sr[p], b = sd[p];
+        const int a = sr[p], c = sd[p];
         s1 += a;
-        s2 += b;
-        ss += a * a + b * b;
-        s12 += a * b;
+        s2 += c;
+        ss += a * a + c * c;
+        s12 += a * c;
       }
     }
     bs[0][k] = s1;
@@ -112,99 +164,574 @@ ssim_sse_kernel(const uint8_t* __restrict__ ref, const uint8_t* __restrict__ dis
       const int* s = bs[m];
       win[m] = static_cast<float>(s[k] + s[k + 1] + s[k + kSsimBX + 1] + s[k + kSsimBX + 2]);
     }
-    const float w1 = win[0], w2 = win[1], wss = win[2], w12 = win[3];
-    const float vars = sub(sub(mul(wss, 64.0f), mul(w1, w1)), mul(w2, w2));
-    const float covar = sub(mul(w12, 64.0f), mul(w1, w2));
-    const float num = mul(add(mul(mul(2.0f, w1), w2), static_cast<float>(kSsimC1)),
-                          add(mul(2.0f, covar), static_cast<float>(kSsimC2)));
-    const float den = mul(add(add(mul(w1, w1), mul(w2, w2)), static_cast<float>(kSsimC1)),
-                          add(vars, static_cast<float>(kSsimC2)));
-    ssim = __fdiv_rn(num, den);
+    ssim = ssim_end1(win[0], win[1], win[2], win[3]);
   }
-  const double sse_sum = block_sum(static_cast<double>(sse), red);
-  const double ssim_sum = block_sum(ssim, red);
-  put_partial(part, n_q, q_sse, n_tiles, sse_sum);
-  put_partial(part, n_q, q_ssim, n_tiles, ssim_sum);
-}
-
-inline dim3 ssim_grid(int b, int h, int w) {
-  return dim3(cdiv(w, 4 * kSsimBX), cdiv(h, 4 * kSsimBY), b);
-}
-
-// ----- FILTER_5 blur + SAD against the previous frame's blur ----------------
-
-constexpr int kBlurTH = 16, kBlurTW = 64, kBlurR = 2;
-constexpr int kBlurRH = kBlurTH + 2 * kBlurR, kBlurRW = kBlurTW + 2 * kBlurR;
-constexpr int kBlurPer = kBlurTH * kBlurTW / kThreads;
-
-// Blur of one frame's tile (rows then columns, reflect borders) into
-// out[k] for the thread's outputs i = tid + k * kThreads.
-__device__ void blur_tile(const uint8_t* __restrict__ img, int h, int w, int y0, int x0,
-                          const Taps& taps, float* raw, float* vert, float out[kBlurPer]) {
-  constexpr int K = 2 * kBlurR + 1;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kBlurRH * kBlurRW; i += kThreads) {
-    const int r = i / kBlurRW, c = i % kBlurRW;
-    raw[i] = static_cast<float>(
-        img[static_cast<size_t>(reflect_idx(y0 + r - kBlurR, h)) * w + reflect_idx(x0 + c - kBlurR, w)]);
+  // Fixed-order block sums: a shuffle tree per warp, then the warps in order.
+  double v[2] = {static_cast<double>(sse), ssim};
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v[q] += __shfl_down_sync(0xffffffffu, v[q], o);
+    if ((tid & 31) == 0) red[q][tid >> 5] = v[q];
   }
   __syncthreads();
-  for (int i = tid; i < kBlurTH * kBlurRW; i += kThreads) {
-    const int r = i / kBlurRW, c = i % kBlurRW;
-    float acc = mul(taps.t[0], raw[r * kBlurRW + c]);
-#pragma unroll
-    for (int t = 1; t < K; ++t) acc = add(acc, mul(taps.t[t], raw[(r + t) * kBlurRW + c]));
-    vert[i] = acc;
+  if (tid < 2) {
+    double total = 0.0;
+    for (int k = 0; k < kThreads / 32; ++k) total += red[tid][k];
+    put_part(part, f, (tid == 0 ? q_sse : q_ssim) + plane, n_tiles, blockIdx.y * gridDim.x + blockIdx.x, total);
   }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kBlurPer; ++k) {
-    const int i = tid + k * kThreads;
-    const float* row = vert + (i / kBlurTW) * kBlurRW + i % kBlurTW;
-    float acc = mul(taps.t[0], row[0]);
-#pragma unroll
-    for (int t = 1; t < K; ++t) acc = add(acc, mul(taps.t[t], row[t]));
-    out[k] = acc;
-  }
-  __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
-blur_sad_kernel(const uint8_t* __restrict__ ry, const float* __restrict__ prev_blur, int n_frames,
-                int h, int w, Taps taps, double* __restrict__ part, int n_q, int q, int n_tiles,
-                float* __restrict__ blur_carry) {
-  __shared__ float raw[kBlurRH * kBlurRW];
-  __shared__ float vert[kBlurTH * kBlurRW];
-  __shared__ double red[kThreads];
+inline dim3 ssim_grid(int planes_x_frames, int h, int w) {
+  return dim3(cdiv(w, 4 * kSsimBX), cdiv(h, 4 * kSsimBY), planes_x_frames);
+}
 
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kBlurTH, x0 = blockIdx.x * kBlurTW;
+// ----- The luma pass ---------------------------------------------------------
+
+constexpr int kLumaTH = kThreads / 32;      // 8 output rows: one warp per row
+constexpr int kLumaTW = 240;                // output columns (1920 = 8 tiles)
+constexpr int kR = 8;                       // 17-tap VIF window radius
+constexpr int kHaloX = 16;                  // staged columns each side (16-byte aligned)
+constexpr int kStageRows = kLumaTH + 2 * kR;          // 24
+constexpr int kStageCols = kLumaTW + 2 * kHaloX;      // 272
+constexpr int kStageBytes = kStageRows * kStageCols;  // per image
+constexpr int kCols = kLumaTW + 2 * kR;     // 256 vertical-pass columns, one per thread
+constexpr int kPitch = kCols + kCols / 8;   // 4 floats of padding per 32 columns
+constexpr int kRun = 8;                     // horizontal outputs per thread
+constexpr int kRuns = kLumaTW / kRun;       // 30 runs per row
+constexpr int kDecRows = kLumaTH / 2;       // even rows of the tile
+constexpr int kBlk = kLumaTW / 4 + 1;       // 4x4 blocks per block row the windows need
+constexpr int kWin = kLumaTW / 4;           // SSIM windows per block row the tile owns
+// A pixel whose computed sigma1^2 is below kFlatTol * E[x^2] sits in a flat
+// ref window (10x the worst-case f32 rounding of that difference).
+constexpr float kFlatTol = 1e-4f;
+static_assert(kCols == kThreads, "one vertical-pass column per thread");
+static_assert(kLumaTW % 16 == 0 && kLumaTH % 4 == 0, "tiles align with 4x4 blocks and 16-byte rows");
+
+struct LumaSmem {
+  uint8_t stage[2][2][kStageBytes];  // [buffer][ref, dis], rows y0-8.., columns x0-16..
+  float mom[5][kLumaTH][kPitch];     // vertical pass: mu1, mu2, E[r^2], E[d^2], E[rd]
+  float blur[kLumaTH][kPitch];       // vertical FILTER_5 of ref
+  float dec[2][kDecRows][kPitch];    // vertical 9-tap of ref, dis at the even rows
+  float4 blk[3][kBlk];               // 4x4 block sums: ref, dis, ref^2 + dis^2, ref*dis
+  double sums[5][kThreads];          // per thread: sse, ssim, sad, vif num, vif den
+};
+
+// Padded index of vertical-pass column c: 16-byte loads at a stride of 8
+// columns across a quarter-warp then hit distinct banks.
+__device__ __forceinline__ int pc(int c) { return c + ((c >> 5) << 2); }
+
+// Exact u8 -> f32 (2^23 + v, minus 2^23) without a conversion instruction.
+__device__ __forceinline__ float u8f(uint8_t v) {
+  return __int_as_float(0x4B000000 | v) - 8388608.0f;
+}
+
+template <bool kExact>
+__device__ __forceinline__ float tap(float acc, float t, float v) {
+  return kExact ? add(acc, mul(t, v)) : fmaf(t, v, acc);
+}
+
+// The plain-order path divides and takes log2 as the plain version does
+// (IEEE division, log2f); the FMA path uses the hardware reciprocal and
+// log2 (a few ulp): a small share of VIF scale 0's error against the plain
+// version, far below its tolerance, for ~10% of the kernel's time at 1080p
+// (PERF.md section 6).
+template <bool kExact>
+__device__ __forceinline__ float quot(float a, float b) {
+  return kExact ? __fdiv_rn(a, b) : __fdividef(a, b);
+}
+
+template <bool kExact>
+__device__ __forceinline__ float lg2(float x) {
+  return kExact ? log2f(x) : __log2f(x);
+}
+
+// The stage images hold frame rows y0-8 .. y0+16 and columns x0-16 ..
+// x0+256 of ref and dis, reflected at the frame's borders, as 16-byte
+// pieces. In a frame with 16-byte rows and bases (`aligned`) each piece
+// inside the frame is copied by one cp.async, and the others (tiles at a
+// border) are mirrored from the copied ones in shared memory; in any other
+// frame every piece is gathered from global memory.
+constexpr int kPieces = kStageCols / 16;
+
+__device__ __forceinline__ bool piece_inside(int gy, int gx, int h, int w) {
+  return gy >= 0 && gy < h && gx >= 0 && gx + 16 <= w;
+}
+
+// numpy reflect of index i at one border, clamped into [lo, hi] (a range
+// of [0, n)). Every index the stencils of valid outputs read lies within 8
+// of the frame (h, w >= 9), where one reflection is exact and the clamp
+// does not bite; the others only need some staged pixel.
+__device__ __forceinline__ int mirror_in(int i, int n, int lo, int hi) {
+  i = i < 0 ? -i : (i >= n ? 2 * (n - 1) - i : i);
+  return min(max(i, lo), hi);
+}
+
+// The 16 bytes of frame row `row` at columns gx .. gx+15, each reflected
+// at the frame's width, packed four to a word.
+__device__ __forceinline__ uint4 gather_piece(const uint8_t* row, int gx, int w) {
+  int idx[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) idx[e] = mirror_in(gx + e, w, 0, w - 1);
+  unsigned v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e) v[e >> 2] |= static_cast<unsigned>(row[idx[e]]) << (8 * (e & 3));
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// Stages one frame: in an aligned frame starts the cp.async copies of the
+// pieces inside it and commits them as one group; in any other frame
+// gathers every piece with plain loads (visible to the block after the
+// next __syncthreads).
+__device__ __forceinline__ void stage_frame(uint8_t* sr, uint8_t* sd, const uint8_t* ref,
+                                            const uint8_t* dis, int h, int w, int y0, int x0,
+                                            bool aligned) {
+  for (int i = threadIdx.x; i < 2 * kStageRows * kPieces; i += kThreads) {
+    const int img = i >= kStageRows * kPieces;
+    const int j = i - img * kStageRows * kPieces;
+    const int r = j / kPieces, k = j - r * kPieces;
+    const int gy = y0 - kR + r, gx = x0 - kHaloX + 16 * k;
+    uint8_t* dst = (img ? sd : sr) + r * kStageCols + 16 * k;
+    const uint8_t* src = img ? dis : ref;
+    if (!aligned) {
+      *reinterpret_cast<uint4*>(dst) =
+          gather_piece(src + static_cast<size_t>(mirror_in(gy, h, 0, h - 1)) * w, gx, w);
+    } else if (piece_inside(gy, gx, h, w)) {
+      cp_async16(dst, src + static_cast<size_t>(gy) * w + gx);
+    }
+  }
+  cp_async_commit();
+}
+
+// Fills the bytes of an aligned frame's stage that stage_frame did not
+// copy, once the copies have landed: each takes the staged byte of the
+// frame pixel it mirrors, clamped into the frame's part of the staged
+// window, which the copies hold. The copied bytes are rows [r0, r1) x
+// columns [c0, c1) of the stage; the others (rows outside [r0, r1), then
+// the columns outside [c0, c1) of the rows inside) are numbered and shared
+// out one byte per thread and step.
+__device__ __forceinline__ void mirror_border(uint8_t* sr, uint8_t* sd, int h, int w, int y0, int x0) {
+  const int ry0 = y0 - kR, cx0 = x0 - kHaloX;
+  const int r_lo = max(ry0, 0), r_hi = min(ry0 + kStageRows, h) - 1;
+  const int c_lo = max(cx0, 0), c_hi = min(cx0 + kStageCols, w) - 1;
+  const int r0 = r_lo - ry0, r1 = r_hi + 1 - ry0, c0 = c_lo - cx0, c1 = c_hi + 1 - cx0;
+  const int outer = (kStageRows - (r1 - r0)) * kStageCols;  // bytes of the rows outside
+  const int side = kStageCols - (c1 - c0);                  // bytes outside per row inside
+  const int per_img = outer + (r1 - r0) * side;
+  for (int t = threadIdx.x; t < 2 * per_img; t += kThreads) {
+    const int img = t >= per_img;
+    const int u = t - img * per_img;
+    int r, c;
+    if (u < outer) {
+      r = u / kStageCols;
+      c = u - r * kStageCols;
+      if (r >= r0) r += r1 - r0;  // the rows below the copied ones
+    } else {
+      const int v = u - outer;
+      r = r0 + v / side;
+      c = v - (r - r0) * side;
+      if (c >= c0) c += c1 - c0;  // the columns right of the copied ones
+    }
+    uint8_t* stage = img ? sd : sr;
+    stage[r * kStageCols + c] = stage[(mirror_in(ry0 + r, h, r_lo, r_hi) - ry0) * kStageCols +
+                                      mirror_in(cx0 + c, w, c_lo, c_hi) - cx0];
+  }
+}
+
+// The vertical pass on this thread's column (image column x0 - 8 +
+// threadIdx.x), one walk down its staged rows: the five 17-tap VIF moments
+// of all kLumaTH rows into mom; with kRest also the FILTER_5 blur of ref,
+// the 9-tap filter of ref and dis at the even rows, the 4x4 block sums of
+// the three block rows the tile's windows need, and the squared
+// differences of the tile's own pixels.
+template <bool kExact, bool kRest>
+__device__ __forceinline__ void vert_pass(const uint8_t* sr, const uint8_t* sd, LumaSmem& s,
+                                          const Taps& t17, const Taps& t9, const Taps& t5,
+                                          bool sse_col, int rows_valid, double& sse_acc) {
+  const int c = threadIdx.x;
+  const uint8_t* pr = sr + c + (kHaloX - kR);
+  const uint8_t* pd = sd + c + (kHaloX - kR);
+  float acc[5][kLumaTH], bl[kLumaTH], dr[kDecRows], dd[kDecRows], bs[3][4] = {}, sse = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kStageRows; ++j) {
+    const float x = u8f(pr[j * kStageCols]), y = u8f(pd[j * kStageCols]);
+    const float p[5] = {x, y, mul(x, x), mul(y, y), mul(x, y)};
+#pragma unroll
+    for (int i = 0; i < kLumaTH; ++i) {
+      const int k = j - i;
+      if (k < 0 || k > 2 * kR) continue;
+#pragma unroll
+      for (int q = 0; q < 5; ++q) {
+        acc[q][i] = k == 0 ? mul(t17.t[0], p[q]) : tap<kExact>(acc[q][i], t17.t[k], p[q]);
+      }
+    }
+    if (!kRest) continue;
+#pragma unroll
+    for (int i = 0; i < kLumaTH; ++i) {  // blur taps: stage rows kR - 2 + i .. + 4
+      const int k = j - (kR - 2) - i;
+      if (k < 0 || k > 4) continue;
+      bl[i] = k == 0 ? mul(t5.t[0], x) : fmaf(t5.t[k], x, bl[i]);
+    }
+#pragma unroll
+    for (int m = 0; m < kDecRows; ++m) {  // 9-tap at even row 2m: stage rows kR - 4 + 2m .. + 8
+      const int k = j - (kR - 4) - 2 * m;
+      if (k < 0 || k > 8) continue;
+      dr[m] = k == 0 ? mul(t9.t[0], x) : fmaf(t9.t[k], x, dr[m]);
+      dd[m] = k == 0 ? mul(t9.t[0], y) : fmaf(t9.t[k], y, dd[m]);
+    }
+    if (j >= kR && j < kR + 12) {  // block rows 0-2: frame rows y0 .. y0 + 11, integers exact in f32
+      const int br = (j - kR) / 4;
+      bs[br][0] += x;
+      bs[br][1] += y;
+      bs[br][2] = fmaf(x, x, fmaf(y, y, bs[br][2]));
+      bs[br][3] = fmaf(x, y, bs[br][3]);
+    }
+    if (j >= kR && j < kR + kLumaTH && j - kR < rows_valid) {
+      const float d = x - y;
+      sse = fmaf(d, d, sse);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+#pragma unroll
+    for (int i = 0; i < kLumaTH; ++i) s.mom[q][i][pc(c)] = acc[q][i];
+  }
+  if (!kRest) return;
+#pragma unroll
+  for (int i = 0; i < kLumaTH; ++i) s.blur[i][pc(c)] = bl[i];
+#pragma unroll
+  for (int m = 0; m < kDecRows; ++m) {
+    s.dec[0][m][pc(c)] = dr[m];
+    s.dec[1][m][pc(c)] = dd[m];
+  }
+  // Block sums: the four columns of a 4x4 block are four neighbouring lanes.
+#pragma unroll
+  for (int br = 0; br < 3; ++br) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      bs[br][q] += __shfl_xor_sync(0xffffffffu, bs[br][q], 1);
+      bs[br][q] += __shfl_xor_sync(0xffffffffu, bs[br][q], 2);
+    }
+    if ((c & 3) == 0 && c >= kR && c < kR + 4 * kBlk) {
+      s.blk[br][(c - kR) / 4] = make_float4(bs[br][0], bs[br][1], bs[br][2], bs[br][3]);
+    }
+  }
+  if (sse_col) sse_acc += sse;
+}
+
+// The FILTER_5 blur of ref alone on this thread's column (the frame before
+// a run).
+__device__ __forceinline__ void vert_blur(const uint8_t* sr, LumaSmem& s, const Taps& t5) {
+  const int c = threadIdx.x;
+  const uint8_t* pr = sr + c + (kHaloX - kR);
+  float bl[kLumaTH];
+#pragma unroll
+  for (int j = kR - 2; j < kR + kLumaTH + 2; ++j) {
+    const float x = u8f(pr[j * kStageCols]);
+#pragma unroll
+    for (int i = 0; i < kLumaTH; ++i) {
+      const int k = j - (kR - 2) - i;
+      if (k < 0 || k > 4) continue;
+      bl[i] = k == 0 ? mul(t5.t[0], x) : fmaf(t5.t[k], x, bl[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kLumaTH; ++i) s.blur[i][pc(c)] = bl[i];
+}
+
+// Load n float4 of a padded vertical-pass row from column c0 (a multiple of 4).
+template <int N>
+__device__ __forceinline__ void load_row(const float* row, int c0, float* v) {
+#pragma unroll
+  for (int s = 0; s < N; ++s) {
+    const float4 f = *reinterpret_cast<const float4*>(row + pc(c0 + 4 * s));
+    v[4 * s] = f.x;
+    v[4 * s + 1] = f.y;
+    v[4 * s + 2] = f.z;
+    v[4 * s + 3] = f.w;
+  }
+}
+
+// Horizontal 17-tap pass and the VIF statistics for this thread's run
+// (row warp, columns 8 * lane .. + 7 of the tile): adds its num and den
+// sums over the valid pixels; flat |= a flat ref window among them.
+template <bool kExact>
+__device__ __forceinline__ void horiz_vif(const float (*mom)[kLumaTH][kPitch], const Taps& t17,
+                                          float egl, int has_egl, int n_valid, double& num_acc,
+                                          double& den_acc, bool& flat) {
+  const int i = threadIdx.x >> 5, r = threadIdx.x & 31;
+  if (r >= kRuns || n_valid <= 0) return;
+  float m[5][kRun];
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    float v[kRun + 2 * kR];
+    load_row<(kRun + 2 * kR) / 4>(mom[q][i], kRun * r, v);
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) m[q][k] = mul(t17.t[0], v[k]);
+#pragma unroll
+    for (int t = 1; t <= 2 * kR; ++t) {
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) m[q][k] = tap<kExact>(m[q][k], t17.t[t], v[k + t]);
+    }
+  }
+  float num_run = 0.0f, den_run = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    if (k >= n_valid) break;
+    const float mu1 = m[0][k], mu2 = m[1][k];
+    float sigma1 = sub(m[2][k], mul(mu1, mu1));
+    float sigma2 = sub(m[3][k], mul(mu2, mu2));
+    const float sigma12 = sub(m[4][k], mul(mu1, mu2));
+    flat |= sigma1 < kFlatTol * m[2][k];
+    sigma1 = fmaxf(sigma1, 0.0f);
+    sigma2 = fmaxf(sigma2, 0.0f);
+    float g = quot<kExact>(sigma12, add(sigma1, kVifEps));
+    float sv_sq = sub(sigma2, mul(g, sigma12));
+    if (sigma1 < kVifEps) {
+      g = 0.0f;
+      sv_sq = sigma2;
+      sigma1 = 0.0f;
+    }
+    if (sigma2 < kVifEps) {
+      g = 0.0f;
+      sv_sq = 0.0f;
+    }
+    if (g < 0.0f) {
+      sv_sq = sigma2;
+      g = 0.0f;
+    }
+    sv_sq = fmaxf(sv_sq, kVifEps);
+    if (has_egl) g = fminf(g, egl);
+    num_run += lg2<kExact>(add(1.0f, quot<kExact>(mul(mul(g, g), sigma1), add(sv_sq, kSigmaNsq))));
+    den_run += lg2<kExact>(add(1.0f, mul(sigma1, 1.0f / kSigmaNsq)));  // = sigma1 / 2, exactly
+  }
+  num_acc += num_run;
+  den_acc += den_run;
+}
+
+// Horizontal FILTER_5 for this thread's run into cur; unless `first`, the
+// SAD of the valid pixels against prv. cur becomes the next frame's prv.
+__device__ __forceinline__ void horiz_blur(const float (*blur)[kPitch], const Taps& t5, int n_valid,
+                                           float* prv, bool first, double& sad_acc) {
+  const int i = threadIdx.x >> 5, r = threadIdx.x & 31;
+  if (r >= kRuns) return;
+  float v[16];
+  load_row<4>(blur[i], kRun * r + 4, v);  // columns 8r + 4 .. 8r + 19: taps at 8r + k + 6 + t
+  float cur[kRun], sad = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) cur[k] = mul(t5.t[0], v[k + 2]);
+#pragma unroll
+  for (int t = 1; t < 5; ++t) {
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) cur[k] = fmaf(t5.t[t], v[k + 2 + t], cur[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    if (!first && k < n_valid) sad += fabsf(cur[k] - prv[k]);
+    prv[k] = cur[k];
+  }
+  sad_acc += sad;
+}
+
+// Horizontal 9-tap at the even columns: warp w filters dec row w / 2 of
+// ref (w even) or dis (w odd); lane r writes dec columns ox0 + 4r .. + 3.
+__device__ __forceinline__ void horiz_dec(const float (*dec)[kDecRows][kPitch], const Taps& t9,
+                                          float* out_ref, float* out_dis, int h2, int w2, int oy0,
+                                          int ox0) {
+  const int w = threadIdx.x >> 5, r = threadIdx.x & 31;
+  const int m = w >> 1, img = w & 1;
+  if (r >= kRuns || oy0 + m >= h2) return;
+  float v[16];
+  load_row<4>(dec[img][m], kRun * r + 4, v);  // taps of output k at 8r + 2k + 4 + t
+  float* out = (img ? out_dis : out_ref) + static_cast<size_t>(oy0 + m) * w2;
+  float acc[kRun / 2];
+#pragma unroll
+  for (int k = 0; k < kRun / 2; ++k) acc[k] = mul(t9.t[0], v[2 * k]);
+#pragma unroll
+  for (int t = 1; t < 9; ++t) {
+#pragma unroll
+    for (int k = 0; k < kRun / 2; ++k) acc[k] = fmaf(t9.t[t], v[2 * k + t], acc[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kRun / 2; ++k) {
+    const int ox = ox0 + (kRun / 2) * r + k;
+    if (ox < w2) out[ox] = acc[k];
+  }
+}
+
+// ssim_end1 of the tile's windows: thread t < 2 kWin takes window row
+// t / kWin, column t % kWin of the tile (block rows y0/4 + 0..1).
+__device__ __forceinline__ float ssim_windows(const float4 (*blk)[kBlk], int h, int w, int y0, int x0) {
+  const int t = threadIdx.x;
+  if (t >= 2 * kWin) return 0.0f;
+  const int wy = t / kWin, wx = t - wy * kWin;
+  if (y0 / 4 + wy >= h / 4 - 1 || x0 / 4 + wx >= w / 4 - 1) return 0.0f;
+  const float4 a = blk[wy][wx], b = blk[wy][wx + 1], c = blk[wy + 1][wx], d = blk[wy + 1][wx + 1];
+  return ssim_end1(a.x + b.x + c.x + d.x, a.y + b.y + c.y + d.y, a.z + b.z + c.z + d.z,
+                   a.w + b.w + c.w + d.w);
+}
+
+// Fixed-order block totals of the five per-thread sums: warp q (q < 5)
+// adds quantity q's values (lane l takes l, l + 32, ... in order, then a
+// shuffle tree), and its lane 0 returns the total.
+__device__ __forceinline__ double block_sum5(const double (*sums)[kThreads]) {
+  const int q = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  double total = 0.0;
+  if (q < 5) {
+#pragma unroll
+    for (int k = 0; k < kThreads / 32; ++k) total += sums[q][lane + 32 * k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) total += __shfl_down_sync(0xffffffffu, total, o);
+  }
+  return total;
+}
+
+// Grid: (tiles across, tiles down, runs); run z covers frames [z * run,
+// min(b, (z + 1) * run)).
+__global__ void __launch_bounds__(kThreads, 2)
+quality_luma_kernel(const uint8_t* __restrict__ ry, const uint8_t* __restrict__ dy,
+            const float* __restrict__ prev_blur, int b, int h, int w, int run, int aligned,
+            Taps t17, Taps t9, Taps t5, float egl, int has_egl, double* __restrict__ part,
+            int n_tiles, float* __restrict__ dec_ref, float* __restrict__ dec_dis,
+            float* __restrict__ blur_carry) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  LumaSmem& s = *reinterpret_cast<LumaSmem*>(smem_raw);
+
+  const int x0 = blockIdx.x * kLumaTW, y0 = blockIdx.y * kLumaTH;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int b0 = blockIdx.z * run, b1 = min(b, b0 + run);
+  const int h2 = (h + 1) / 2, w2 = (w + 1) / 2;
   const size_t plane = static_cast<size_t>(h) * w;
-  float cur[kBlurPer], prv[kBlurPer];
-  blur_tile(ry + b * plane, h, w, y0, x0, taps, raw, vert, cur);
-  if (b > 0) blur_tile(ry + (b - 1) * plane, h, w, y0, x0, taps, raw, vert, prv);
+  const int c = threadIdx.x, row = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rows_valid = min(kLumaTH, h - y0);
+  const bool row_valid = row < rows_valid;
+  const int run_valid = row_valid ? min(kRun, w - x0 - kRun * lane) : 0;  // pixels of my run
+  const bool sse_col = c >= kR && c < kR + kLumaTW && x0 - kR + c < w;
 
-  double sad = 0.0;
+  // The blur of the frame before the run: prev_blur, or computed below.
+  float prv[kRun];
+  const bool prv_from_carry = b0 == 0;
 #pragma unroll
-  for (int k = 0; k < kBlurPer; ++k) {
-    const int i = threadIdx.x + k * kThreads;
-    const int y = y0 + i / kBlurTW, x = x0 + i % kBlurTW;
-    if (y >= h || x >= w) continue;
-    const size_t g = static_cast<size_t>(y) * w + x;
-    const float p = b > 0 ? prv[k] : prev_blur[g];
-    sad += fabsf(sub(cur[k], p));
-    if (b == n_frames - 1) blur_carry[g] = cur[k];
+  for (int k = 0; k < kRun; ++k) {
+    prv[k] = prv_from_carry && lane < kRuns && k < run_valid
+                 ? prev_blur[static_cast<size_t>(y0 + row) * w + x0 + kRun * lane + k] : 0.0f;
   }
-  put_partial(part, n_q, q, n_tiles, block_sum(sad, red));
+
+  const bool mirror = aligned && (y0 < kR || y0 + kLumaTH + kR > h || x0 < kHaloX ||
+                                  x0 + kLumaTW + kHaloX > w);  // some pieces are not copied
+  // Frame f + 1 is staged while frame f computes. A tile at a border mirrors
+  // a frame's missing bytes once its copies have landed, then waits once
+  // more; other tiles need only the barrier that ends the frame before.
+  const int first = b0 > 0 ? b0 - 1 : b0;
+  stage_frame(s.stage[0][0], s.stage[0][1], ry + first * plane, dy + first * plane, h, w, y0, x0, aligned);
+  cp_async_wait<0>();
+  __syncthreads();
+  if (mirror) {
+    mirror_border(s.stage[0][0], s.stage[0][1], h, w, y0, x0);
+    __syncthreads();
+  }
+  for (int f = first, k = 0; f < b1; ++f, ++k) {
+    uint8_t* sr = s.stage[k & 1][0];
+    uint8_t* sd = s.stage[k & 1][1];
+    uint8_t* nr = s.stage[(k + 1) & 1][0];
+    uint8_t* nd = s.stage[(k + 1) & 1][1];
+    if (f + 1 < b1) {
+      stage_frame(nr, nd, ry + (f + 1) * plane, dy + (f + 1) * plane, h, w, y0, x0, aligned);
+    }
+    const bool pre = f < b0;  // the frame before the run: its blur only
+    double v[5] = {0.0, 0.0, 0.0, 0.0, 0.0};  // sse, ssim, sad, num, den
+    if (pre) {
+      vert_blur(sr, s, t5);
+    } else {
+      vert_pass<false, true>(sr, sd, s, t17, t9, t5, sse_col, rows_valid, v[0]);
+    }
+    __syncthreads();
+    horiz_blur(s.blur, t5, run_valid, prv, pre, v[2]);
+    if (!pre) {
+      if (f == b - 1 && lane < kRuns) {
+        for (int q = 0; q < run_valid; ++q) {
+          blur_carry[static_cast<size_t>(y0 + row) * w + x0 + kRun * lane + q] = prv[q];
+        }
+      }
+      const size_t dec_frame = static_cast<size_t>(f) * h2 * w2;
+      horiz_dec(s.dec, t9, dec_ref + dec_frame, dec_dis + dec_frame, h2, w2, y0 / 2, x0 / 2);
+      v[1] = ssim_windows(s.blk, h, w, y0, x0);
+      bool flat = false;
+      horiz_vif<false>(s.mom, t17, egl, has_egl, run_valid, v[3], v[4], flat);
+#pragma unroll
+      for (int q = 0; q < 5; ++q) s.sums[q][threadIdx.x] = v[q];
+      if (__syncthreads_or(flat)) {
+        // Flat ref windows: the VIF moments again, in the plain version's order.
+        vert_pass<true, false>(sr, sd, s, t17, t9, t5, sse_col, rows_valid, v[0]);
+        __syncthreads();
+        double num = 0.0, den = 0.0;
+        horiz_vif<true>(s.mom, t17, egl, has_egl, run_valid, num, den, flat);
+        s.sums[3][threadIdx.x] = num;
+        s.sums[4][threadIdx.x] = den;
+        __syncthreads();
+      }
+      const double total = block_sum5(s.sums);
+      if (lane == 0 && row < 5) {
+        put_part(part, f, row == 0 ? kSseY : row == 1 ? kSsimY : row == 2 ? kSad : row == 3 ? kVifNum : kVifDen,
+                 n_tiles, tile, total);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // frame f is done with the buffers; frame f + 1's copies have landed
+    if (mirror && f + 1 < b1) {
+      mirror_border(nr, nd, h, w, y0, x0);
+      __syncthreads();
+    }
+  }
+}
+
+struct LumaLaunch {
+  int blocks_per_sm = 0, sms = 0;
+};
+
+// Blocks of quality_luma_kernel resident per SM and the SM count of the current
+// device (the dynamic shared memory limit is raised once per device). All
+// zero if a query failed (its error stays for cudaGetLastError); an entry is
+// cached only once every query has succeeded.
+LumaLaunch luma_launch() {
+  static LumaLaunch cache[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return LumaLaunch{};
+  if (cache[dev].blocks_per_sm > 0 && cache[dev].sms > 0) return cache[dev];
+  LumaLaunch l;
+  if (cudaFuncSetAttribute(quality_luma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(sizeof(LumaSmem))) != cudaSuccess ||
+      cudaDeviceGetAttribute(&l.sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&l.blocks_per_sm, quality_luma_kernel, kThreads,
+                                                    sizeof(LumaSmem)) != cudaSuccess ||
+      l.blocks_per_sm <= 0 || l.sms <= 0) {
+    return LumaLaunch{};
+  }
+  cache[dev] = l;
+  return l;
+}
+
+// Frames per run: the grid is tiles x ceil(b / run) blocks in waves of
+// `resident`; a run costs its frames plus ~0.1 of a frame for the blur of
+// the frame before it. Take the run with the least waves x (run + 0.1).
+int luma_run(int b, int tiles, int resident) {
+  int best = b;
+  double best_cost = 0.0;
+  for (int run = b; run >= 1; --run) {
+    const long long blocks = static_cast<long long>(tiles) * cdiv(b, run);
+    const double cost = static_cast<double>((blocks + resident - 1) / resident) * (run + 0.1);
+    if (run == b || cost < best_cost) {
+      best = run;
+      best_cost = cost;
+    }
+  }
+  return best;
 }
 
 int quality_tiles(int h, int w, int hc, int wc) {
-  int n = stats_tiles(h, w);  // the blur uses the same 16 x 64 tiles
-  const int s = cdiv(w, 4 * kSsimBX) * cdiv(h, 4 * kSsimBY);
-  const int sc = cdiv(wc, 4 * kSsimBX) * cdiv(hc, 4 * kSsimBY);
-  if (s > n) n = s;
-  if (sc > n) n = sc;
-  return n;
+  const int luma = cdiv(w, kLumaTW) * cdiv(h, kLumaTH);
+  const int chroma = cdiv(wc, 4 * kSsimBX) * cdiv(hc, 4 * kSsimBY);
+  return luma > chroma ? luma : chroma;
 }
 
 }  // namespace
@@ -212,6 +739,22 @@ int quality_tiles(int h, int w, int hc, int wc) {
 // Doubles of per-tile partial scratch that rtvqa_quality_fused needs.
 extern "C" long long rtvqa_quality_scratch(int b, int h, int w, int hc, int wc) {
   return static_cast<long long>(b) * kQ * quality_tiles(h, w, hc, wc);
+}
+
+// The luma kernel's launch figures on the current device: out[0] blocks
+// per SM (occupancy API), out[1] registers per thread, out[2] dynamic
+// shared bytes per block, out[3] local (spill) bytes per thread. Returns a
+// cudaError_t.
+extern "C" int rtvqa_quality_luma_occupancy(int* out) {
+  const LumaLaunch l = luma_launch();
+  RTVQA_LAUNCH_CHECK();
+  cudaFuncAttributes attr{};
+  const cudaError_t err = cudaFuncGetAttributes(&attr, quality_luma_kernel);
+  out[0] = l.blocks_per_sm;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(sizeof(LumaSmem));
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
 }
 
 // ry/dy: (b, h, w) uint8; ru/rv/du/dv: (b, hc, wc) uint8; prev_blur: (h, w)
@@ -233,23 +776,18 @@ extern "C" int rtvqa_quality_fused(const uint8_t* ry, const uint8_t* ru, const u
   const int n_tiles = quality_tiles(h, w, hc, wc);
   cudaMemsetAsync(scratch, 0, sizeof(double) * rtvqa_quality_scratch(b, h, w, hc, wc), stream);
   RTVQA_LAUNCH_CHECK();
-  ssim_sse_kernel<<<ssim_grid(b, h, w), kThreads, 0, stream>>>(
-      ry, dy, h, w, scratch, kQ, kSseY, kSsimY, n_tiles);
+  const LumaLaunch l = luma_launch();
   RTVQA_LAUNCH_CHECK();
-  ssim_sse_kernel<<<ssim_grid(b, hc, wc), kThreads, 0, stream>>>(
-      ru, du, hc, wc, scratch, kQ, kSseU, kSsimU, n_tiles);
+  const dim3 tiles(cdiv(w, kLumaTW), cdiv(h, kLumaTH));
+  const int resident = l.blocks_per_sm * l.sms;
+  const int run = luma_run(b, tiles.x * tiles.y, resident > 0 ? resident : 1);
+  const int aligned = w % 16 == 0 && ((reinterpret_cast<uintptr_t>(ry) | reinterpret_cast<uintptr_t>(dy)) & 15) == 0;
+  quality_luma_kernel<<<dim3(tiles.x, tiles.y, cdiv(b, run)), kThreads, sizeof(LumaSmem), stream>>>(
+      ry, dy, prev_blur, b, h, w, run, aligned, make_taps(taps17, 17), make_taps(taps9, 9),
+      make_taps(taps_blur, 5), egl, has_egl, scratch, n_tiles, dec_ref, dec_dis, blur_carry);
   RTVQA_LAUNCH_CHECK();
-  ssim_sse_kernel<<<ssim_grid(b, hc, wc), kThreads, 0, stream>>>(
-      rv, dv, hc, wc, scratch, kQ, kSseV, kSsimV, n_tiles);
-  RTVQA_LAUNCH_CHECK();
-  blur_sad_kernel<<<stats_grid(b, h, w), kThreads, 0, stream>>>(
-      ry, prev_blur, b, h, w, make_taps(taps_blur, 5), scratch, kQ, kSad, n_tiles, blur_carry);
-  RTVQA_LAUNCH_CHECK();
-  vif_stats_kernel<uint8_t, 8><<<stats_grid(b, h, w), kThreads, 0, stream>>>(
-      ry, dy, h, w, make_taps(taps17, 17), egl, has_egl, scratch, kQ, kVifNum, n_tiles);
-  RTVQA_LAUNCH_CHECK();
-  filter_decimate_kernel<uint8_t, 4><<<dec_grid(b, h, w), kThreads, 0, stream>>>(
-      ry, dy, h, w, make_taps(taps9, 9), dec_ref, dec_dis);
+  ssim_sse_kernel<<<ssim_grid(2 * b, hc, wc), kThreads, 0, stream>>>(
+      ru, du, rv, dv, b, hc, wc, scratch, kSseU, kSsimU, n_tiles);
   RTVQA_LAUNCH_CHECK();
   reduce_rows_kernel<<<b * kQ, kThreads, 0, stream>>>(scratch, n_tiles, sums);
   RTVQA_LAUNCH_CHECK();

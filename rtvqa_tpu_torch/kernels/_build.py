@@ -133,6 +133,8 @@ def load_library() -> ctypes.CDLL:
         lib.rtvqa_quality_fused.argtypes = (
             [ptr] * 7 + [i32] * 5 + [ptr] * 3 + [f32, i32] + [ptr] * 6)
         lib.rtvqa_quality_fused.restype = i32
+        lib.rtvqa_quality_luma_occupancy.argtypes = [ptr]
+        lib.rtvqa_quality_luma_occupancy.restype = i32
         lib.rtvqa_vif_tail_scratch_floats.argtypes = [i32] * 3
         lib.rtvqa_vif_tail_scratch_floats.restype = i64
         lib.rtvqa_vif_tail_scratch_doubles.argtypes = [i32] * 3
@@ -150,7 +152,7 @@ def load_library() -> ctypes.CDLL:
         lib.rtvqa_adm_scale.restype = i32
         lib.rtvqa_adm_input.argtypes = [ptr, ptr] + [i32] * 7 + [ptr] * 3
         lib.rtvqa_adm_input.restype = i32
-        lib.rtvqa_strip_sum.argtypes = [ptr] + [i32] * 4 + [ptr] * 3
+        lib.rtvqa_strip_sum.argtypes = [ptr] + [i32] * 4 + [ptr] * 2
         lib.rtvqa_strip_sum.restype = i32
         lib.rtvqa_strip_floor.argtypes = [ptr] + [i32] * 4 + [ptr] * 3
         lib.rtvqa_strip_floor.restype = i32

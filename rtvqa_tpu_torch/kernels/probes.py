@@ -3,8 +3,10 @@ their plain versions.
 
 * ``strip_sum_cuda`` (kernel 8) replaces the kernel of
   ``scripts/probe_int8_dma.py`` (``run``): per-frame sums over 32-row
-  strips, each strip read as its 48-row window at an 8-aligned row, u8 or
-  f32 input — the read cost of the quality kernels' windows per type.
+  strips of u8 or f32 frames. The TPU kernel read each strip as its 48-row
+  window at an 8-aligned row (the plain version still takes each strip's
+  valid rows from that window); the kernel reads each strip's valid rows,
+  which partition the frame, once.
 * ``strip_floor_cuda`` (kernel 9) replaces the kernel of
   ``scripts/probe_dma_floor.py`` (``floor``): every 56-row window at a
   48-row stride read into shared memory and touched once, f32, bf16 or u8
@@ -63,23 +65,22 @@ def strip_sum_plain(x):
 
 
 def strip_sum_cuda(x):
-    """Kernel 8 on a uint8 or f32 (N, H, W) tensor; the same output as
-    :func:`strip_sum_plain`."""
+    """Kernel 8 on a uint8 or f32 (N, H, W) tensor: each frame read once;
+    the same output as :func:`strip_sum_plain`."""
     if x.device.type == "cpu":
         return strip_sum_plain(x)
     require_cuda("x", x, (torch.uint8, torch.float32), 3)
     _strip_sum_check(x)
     n, h, w = x.shape
     lib = load_library()
-    part = torch.empty((max(n * -(-h // STRIP_SUM_ROWS), 1),), dtype=torch.float64, device=x.device)
-    sums = torch.empty((n,), dtype=torch.float64, device=x.device)
+    sums = torch.empty((n,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.rtvqa_strip_sum(x.data_ptr(), x.element_size(), n, h, w, part.data_ptr(),
-                                   sums.data_ptr(), stream)
+        code = lib.rtvqa_strip_sum(x.data_ptr(), x.element_size(), n, h, w, sums.data_ptr(), stream)
     check_launch(lib, code, "strip_sum")
     strip_sum_cuda.launches += 1
-    return sums.float()
+    strip_sum_cuda.launches_by_type["u8" if x.dtype == torch.uint8 else "f32"] += 1
+    return sums
 
 
 def _strip_floor_check(x) -> int:
@@ -122,4 +123,5 @@ def strip_floor_cuda(x):
 
 
 strip_sum_cuda.launches = 0
+strip_sum_cuda.launches_by_type = {"u8": 0, "f32": 0}  # the same launches, by input type
 strip_floor_cuda.launches = 0

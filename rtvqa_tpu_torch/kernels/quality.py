@@ -5,12 +5,17 @@ Replaces ``rtvqa_tpu/kernels/quality_pallas.py::quality_fused_pallas``:
 per frame, the plane SSEs, the x264 SSIM window sums of Y/U/V, the FILTER_5
 blur of ref luma and its SAD against the previous frame's blur (frame 0
 against ``prev_blur``), VIF scale 0, the scale-1 inputs (9-tap filter, even
-rows and columns) of ref and dis, and the blurred last frame. The wrapper
+rows and columns) of ref and dis, and the blurred last frame. On the card
+one luma kernel computes all of the luma work from one staged tile per
+frame (FMA taps; VIF moments of tiles with flat ref windows in the plain
+version's order) and one more launch the chroma SSE/SSIM. The wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -103,3 +108,14 @@ def quality_fused_cuda(ry, ru, rv, dy, du, dv, prev_blur, egl=None) -> dict:
 
 
 quality_fused_cuda.launches = 0
+
+
+def quality_luma_occupancy(device) -> dict:
+    """The luma kernel's launch figures on a CUDA ``device``: blocks per SM
+    (the occupancy API), registers per thread, dynamic shared bytes per
+    block and local (spill) bytes per thread."""
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        check_launch(lib, lib.rtvqa_quality_luma_occupancy(out), "quality_luma_occupancy")
+    return dict(zip(("blocks_per_sm", "registers", "shared_bytes", "local_bytes"), out))

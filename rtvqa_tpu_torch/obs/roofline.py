@@ -21,8 +21,7 @@ Counting rules
   luma pair into ADM scale 0, f32 approximation pair out and back in), so
   ``quality_roofline`` and ``complexity_roofline`` keep the JAX module's byte
   counts. Kernel 8's function is the per-frame sum, so its bytes are the
-  frames'; its overlapping 48-row windows (1.5x that) are how it reads
-  them, and ``strip_sum_windows`` gives their bytes for a read rate. Kernel
+  frames', which it reads once. Kernel
   9's function is the read of its windows into shared memory (one touch
   each keeps every load), so its bytes are the rows its windows cover,
   each counted once: the 8 rows two windows share are read twice, but
@@ -148,12 +147,6 @@ def strip_sum_work(n, h, w, itemsize):
     """Kernel 8: the frames read once, one f32 sum per frame out; one add
     per element."""
     return n * h * w * itemsize + 4 * n, n * h * w
-
-
-def strip_sum_windows(n, h, w, itemsize):
-    """Bytes of kernel 8's 48-row windows, one per 32-row strip: what it
-    reads, for its read rate."""
-    return n * -(-h // STRIP_SUM_ROWS) * STRIP_SUM_WINDOW * w * itemsize
 
 
 def strip_floor_work(n, h, w, itemsize):

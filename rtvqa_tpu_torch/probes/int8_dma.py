@@ -1,15 +1,15 @@
-"""What the quality kernels' 48-row strip windows cost to read as u8
-against f32 (kernel 8, ``strip_sum_cuda``): per-frame sums over 32-row
-strips, each read as its window at an 8-aligned row. The port of
-``scripts/probe_int8_dma.py``; on the TPU the u8 frames had to be bitcast
-to int8 to be DMA'd, here the kernel reads u8 as it is.
+"""What frames cost to read and sum as u8 against f32 (kernel 8,
+``strip_sum_cuda``): per-frame sums over 32-row strips, each frame read
+once. The port of ``scripts/probe_int8_dma.py``, whose TPU kernel read each
+strip as a 48-row window at an 8-aligned row and had to bitcast the u8
+frames to int8 to DMA them; here the kernel reads u8 as it is.
 
     python -m rtvqa_tpu_torch.probes.int8_dma [--n 16] [--reps 10] [--device cpu]
 
 Prints the correctness of both types against a float64 sum of the frames
 (the script's check, rel 1e-6), then the times: u8 as it is, the f32 copy
 alone, and the f32 path with its ``x.float()`` conversion (the script's
-"astype prep"), each with the windows' bytes per second.
+"astype prep"), each with the frames' bytes read per second.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import sys
 import torch
 
 from rtvqa_tpu_torch.kernels.probes import strip_sum_cuda
-from rtvqa_tpu_torch.obs.roofline import strip_sum_windows
+from rtvqa_tpu_torch.obs.roofline import strip_sum_work
 from rtvqa_tpu_torch.probes import device_ms, fmt_ms, parser, rate, setup, time_ms
 
 N, H, W = 16, 1080, 1920
@@ -37,16 +37,16 @@ def main(argv: list[str] | None = None) -> int:
     for name, x in (("u8", xs[0]), ("f32", xf[0])):
         err = float(((strip_sum_cuda(x).double() - want).abs() / want.clamp_min(1.0)).max())
         ok &= err < RTOL
-        print(f"[probe] {name} 8-aligned window-read correctness: max_rel_err={err:.3g} "
+        print(f"[probe] {name} strip-sum correctness: max_rel_err={err:.3g} "
               f"{'PASS' if err < RTOL else 'FAIL'}", flush=True)
     print(f"[probe] {args.n}x{args.height}x{args.width} on {where}", flush=True)
     for name, fn, inputs, itemsize in (("u8 raw", strip_sum_cuda, xs, 1),
                                        ("f32 (strips only)", strip_sum_cuda, xf, 4),
                                        ("f32 (astype prep)", lambda x: strip_sum_cuda(x.float()), xs, 4)):
         ms, dms = time_ms(fn, inputs, args.reps, dev), device_ms(fn, inputs, args.reps, dev)
-        nbytes = strip_sum_windows(*shape, itemsize)
+        nbytes = strip_sum_work(*shape, itemsize)[0]
         on_device = f" = {rate(nbytes, dms)}" if dms else ""
-        print(f"[probe] {name}: {ms:.4f} ms ({rate(nbytes, ms)} of windows); device "
+        print(f"[probe] {name}: {ms:.4f} ms ({rate(nbytes, ms)} of frames); device "
               f"{fmt_ms(dms)}{on_device}", flush=True)
     return 0 if ok else 1
 

@@ -148,6 +148,85 @@ def test_quality_kernel_matches_plain(dev, b, h, w, egl):
         torch.testing.assert_close(got[key], want[key], rtol=1e-4, atol=1e-3)
 
 
+def _assert_quality_close(got, want, h, w, hc, wc):
+    """Kernel 3's tolerances against its plain version (module docstring)."""
+    for key in ("sse_y", "sse_u", "sse_v"):
+        assert torch.equal(got[key], want[key]), key
+    for key, n_win in (("ssim_y_sum", (h // 4 - 1) * (w // 4 - 1)),
+                       ("ssim_u_sum", (hc // 4 - 1) * (wc // 4 - 1)),
+                       ("ssim_v_sum", (hc // 4 - 1) * (wc // 4 - 1))):
+        torch.testing.assert_close(got[key] / n_win, want[key] / n_win, rtol=0, atol=2e-6)
+    assert _rel(got["vif_scale0"], want["vif_scale0"]) < 2e-4
+    torch.testing.assert_close(got["sad_sum"], want["sad_sum"], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got["blur_carry"], want["blur_carry"], rtol=0, atol=1e-4)
+    for key in ("dec_ref", "dec_dis"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-4, atol=1e-3)
+
+
+def _flat_inputs(rng, b, h, w, levels, dev):
+    """Flat ref fields (one level per quadrant) with one textured square
+    that moves a pixel per frame; dis = ref + noise on the left half and
+    dis = ref on the right; chroma as _quality_inputs makes it."""
+    x = _quality_inputs(rng, b, h, w, dev)
+    ref = np.empty((b, h, w), np.uint8)
+    for k, (ys, xs) in enumerate(((slice(0, h // 2), slice(0, w // 2)), (slice(0, h // 2), slice(w // 2, w)),
+                                  (slice(h // 2, h), slice(0, w // 2)), (slice(h // 2, h), slice(w // 2, w)))):
+        ref[:, ys, xs] = levels[k]
+    side = min(h, w) // 4
+    tex = rng.integers(0, 256, (side, side + b), dtype=np.uint8)
+    for i in range(b):
+        ref[i, h // 3:h // 3 + side, w // 3:w // 3 + side] = tex[:, i:i + side]
+    dis = ref.copy()
+    noise = rng.integers(-4, 5, (b, h, w // 2))
+    dis[:, :, :w // 2] = np.clip(ref[:, :, :w // 2].astype(np.int16) + noise, 0, 255).astype(np.uint8)
+    x[0], x[3] = torch.from_numpy(ref).to(dev), torch.from_numpy(dis).to(dev)
+    return x
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 270, 480), (2, 1080, 1920)])
+@pytest.mark.parametrize("levels", [(255, 128, 16, 235), (255, 255, 255, 255)])
+def test_quality_kernel_flat_regions(dev, b, h, w, levels):
+    """Flat ref windows, where sigma1^2 is rounding noise: the kernel's VIF
+    scale 0 still holds rel 2e-4 against the plain version (FMA moments
+    alone do not here), and every other output its tolerance."""
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda, quality_fused_plain
+
+    x = _flat_inputs(np.random.default_rng(14), b, h, w, levels, dev)
+    got = quality_fused_cuda(*x)
+    torch.cuda.synchronize()
+    _assert_quality_close(got, quality_fused_plain(*x), h, w, *x[1].shape[-2:])
+
+
+@pytest.mark.parametrize("b,h,w", [(65, 72, 200), (1, 48, 64), (130, 50, 71)])
+def test_quality_kernel_frame_runs(dev, b, h, w):
+    """Chunks whose frames split into runs of blocks in several ways (runs
+    of one frame, of two, a single frame), each run blurring the frame
+    before it, against the plain version."""
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda, quality_fused_plain
+
+    x = _quality_inputs(np.random.default_rng(15), b, h, w, dev)
+    got = quality_fused_cuda(*x)
+    torch.cuda.synchronize()
+    _assert_quality_close(got, quality_fused_plain(*x), h, w, *x[1].shape[-2:])
+
+
+@pytest.mark.parametrize("b,h,w", [(64, 1080, 1920), (9, 50, 71)])
+def test_quality_kernel_carry_between_calls(dev, b, h, w):
+    """A chunk split into two calls, the first call's carry handed to the
+    second, gives one call's SAD (within 1e-5) and carry (within 1e-4)."""
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
+
+    x = _quality_inputs(np.random.default_rng(16), b, h, w, dev)
+    whole = quality_fused_cuda(*x)
+    cut = b // 2 + 1
+    first = quality_fused_cuda(*[t[:cut] for t in x[:6]], x[6])
+    second = quality_fused_cuda(*[t[cut:] for t in x[:6]], first["blur_carry"])
+    torch.cuda.synchronize()
+    sad = torch.cat([first["sad_sum"], second["sad_sum"]])
+    torch.testing.assert_close(sad, whole["sad_sum"], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(second["blur_carry"], whole["blur_carry"], rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("b,h,w", QUALITY_SHAPES)
 @pytest.mark.parametrize("egl", [None, 1.0])
 def test_vif_tail_kernel_matches_plain(dev, b, h, w, egl):
@@ -397,3 +476,22 @@ def test_strip_floor_kernel_matches_plain(dev, shape, dtype):
     assert torch.equal(got, strip_floor_plain(x))
     with pytest.raises(ValueError, match="window"):
         strip_floor_cuda(x[:, :96].contiguous())
+
+
+@pytest.mark.parametrize("shape", [(16, 1080, 1920), (3, 72, 1919), (3, 72, 1921)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_strip_sum_kernel_full_and_odd_widths(dev, shape, dtype):
+    """Kernel 8 on all-255 1080p frames (the u8 count's headroom) and on odd
+    widths, at an aligned base and one byte / element into storage, against
+    the plain version at rel 1e-6."""
+    from rtvqa_tpu_torch.kernels.probes import strip_sum_cuda, strip_sum_plain
+
+    if shape[2] == 1920:
+        x = torch.full(shape, 255, dtype=torch.uint8, device=dev).to(dtype)
+    else:
+        x = torch.from_numpy(np.random.default_rng(23).integers(0, 256, shape, np.uint8)).to(dev).to(dtype)
+    flat = torch.cat([x.new_zeros(1), x.flatten()])
+    for frames in (x, flat[1:].view(shape)):
+        got = strip_sum_cuda(frames)
+        torch.cuda.synchronize()
+        assert _rel(got, strip_sum_plain(frames)) < 1e-6

@@ -63,11 +63,10 @@ def test_kernel_bounds_on_the_h100(work, ms, by):
 
 
 def test_probe_windows_overlap_their_functions_bytes():
-    """Kernel 8's windows are 1.5x its frames (34 windows of 48 rows over
-    1080 rows); kernel 9's are 22 windows of 56 rows over the 1064 rows
-    they cover (1.373 GB in f32)."""
-    frames = roofline.strip_sum_work(16, 1080, 1920, 4)[0] - 4 * 16
-    assert roofline.strip_sum_windows(16, 1080, 1920, 4) == frames * 34 * 48 // 1080
+    """Kernel 8 reads its frames once (and writes one f32 per frame);
+    kernel 9's windows are 22 windows of 56 rows over the 1064 rows they
+    cover (1.373 GB in f32)."""
+    assert roofline.strip_sum_work(16, 1080, 1920, 4) == (16 * 1080 * 1920 * 4 + 4 * 16, 16 * 1080 * 1920)
     covered = roofline.strip_floor_work(128, 1088, 2176, 4)[0] - 4
     assert covered == 128 * 1064 * 2176 * 4
     assert roofline.strip_floor_windows(128, 1088, 2176, 4) == 128 * 22 * 56 * 2176 * 4 == 1_372_585_984
