@@ -99,16 +99,17 @@ ADM_RTOL = 2e-4
 ADM2_RTOL = 3e-4
 VMAF_RTOL = 3e-4               # pooled VMAF: the widest of its features' tolerances
 STRIP_SUM_RTOL = 1e-6         # scripts/probe_int8_dma.py's own check
-# Kernel 3 on content with flat regions: quadrant levels, letterbox bars of
-# a 2.39:1 picture in 1080 rows; the luma kernel's tile (kLumaTH x kLumaTW)
-# and flat-window test (kFlatTol), from csrc/quality.cu.
+# Kernels 3, 5, 6 and 7 on content with flat regions: quadrant levels,
+# letterbox bars of a 2.39:1 picture in 1080 rows; the tile of kernel 3's
+# luma kernel and of kernel 5 (8 x 240 in both) and their flat-window test
+# (kFlatTol), from csrc/quality.cu, csrc/vif.cu and csrc/common.cuh.
 FLAT_LEVELS = (255, 128, 16, 235)
 BAR_ROWS = 138
-LUMA_TILE = (8, 240)
+VIF_TILE = (8, 240)
 FLAT_TOL = 1e-4
 # The quality route's __global__ kernels, which the trace must name.
-ROUTE_KERNELS = ("quality_luma_kernel", "ssim_sse_kernel", "vif_stats_kernel", "filter_decimate_kernel",
-                 "adm_scale_kernel", "reduce_rows_kernel")
+ROUTE_KERNELS = ("quality_luma_kernel", "ssim_sse_kernel", "vif_tail_kernel", "adm_scale_kernel",
+                 "reduce_rows_kernel", "reduce_segments_kernel")
 # Against the NumPy oracles: tests/test_quality.py (MSE, SSIM), test_vmaf.py (ADM).
 ORACLE_MSE_RTOL, ORACLE_SSIM_ATOL, ORACLE_ADM_RTOL = 1e-5, 1e-4, 5e-4
 
@@ -452,14 +453,18 @@ def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
         check_close(key, vk[key], vp[key], rtol=VIF_TAIL_RTOL)
     rels = {key: max_rel(vk[key], vp[key]) for key in vp}
     err = max(max_abs(vk[key], vp[key]) for key in vp)
+    check_repeat("vif_tail", tuple(vk.values()), tuple(vif_tail_cuda(*dec).values()))
     ms = time_ms(lambda _: vif_tail_cuda(*dec), [None], 10, dev)
+    dev_ms = device_ms(lambda _: vif_tail_cuda(*dec), [None], 10, dev)
     plain_ms = time_ms(lambda _: vif_tail_plain(*dec), [None], 2, dev)
     mem = (peak_gib(lambda: vif_tail_cuda(*dec)), peak_gib(lambda: vif_tail_plain(*dec)))
-    print(f"vif_tail: {tuple(dec[0].shape)} max abs err {err:.3g}, rel {json.dumps(rels)}; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; peak {mem[0]:.2f} vs {mem[1]:.2f} GiB")
-    records.append(record("vif_tail", "rtvqa_tpu_torch/csrc/vif.cu",
-                          "rtvqa_tpu/kernels/vif_pallas.py:874", err, ms, plain_ms,
-                          vif_tail_work(*dec[0].shape)))
+    rec = record("vif_tail", "rtvqa_tpu_torch/csrc/vif.cu", "rtvqa_tpu/kernels/vif_pallas.py:874", err, ms,
+                 plain_ms, vif_tail_work(*dec[0].shape))
+    print(f"vif_tail: {tuple(dec[0].shape)} max abs err {err:.3g}, rel {json.dumps(rels)}; repeat "
+          f"bit-equal; {kernel_time(rec, dev_ms)}, plain {plain_ms:.4f} ms; peak {mem[0]:.2f} vs "
+          f"{mem[1]:.2f} GiB")
+    profile_device("vif_tail, one call", lambda: vif_tail_cuda(*dec))
+    records.append(rec)
     del dec, vk, vp, got, want
 
     # Kernel 6: ADM scale 0 on the u8 luma pair.
@@ -471,15 +476,18 @@ def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
     check_close("a_ref", a_ref, pa_ref, rtol=PLANE_RTOL, atol=PLANE_ATOL)
     check_close("a_dis", a_dis, pa_dis, rtol=PLANE_RTOL, atol=PLANE_ATOL)
     err = max(max_abs(x, y) for x, y in ((num, pn), (den, pd), (a_ref, pa_ref), (a_dis, pa_dis)))
+    check_repeat("adm_scale0", (num, den, a_ref, a_dis), adm_scale_cuda(ry, dy, 0))
     ms = time_ms(lambda _: adm_scale_cuda(ry, dy, 0), [None], 10, dev)
+    dev_ms = device_ms(lambda _: adm_scale_cuda(ry, dy, 0), [None], 10, dev)
     plain_ms = time_ms(lambda _: adm_scale_plain(ry, dy, 0), [None], 2, dev)
     mem = (peak_gib(lambda: adm_scale_cuda(ry, dy, 0)), peak_gib(lambda: adm_scale_plain(ry, dy, 0)))
+    rec = record("adm_scale0", "rtvqa_tpu_torch/csrc/adm.cu", "rtvqa_tpu/kernels/adm_pallas.py:499", err,
+                 ms, plain_ms, adm_scale0_work(b, h, w))
     print(f"adm_scale0: {tuple(ry.shape)} max abs err {err:.3g} (num rel {max_rel(num, pn):.3g}, "
-          f"den rel {max_rel(den, pd):.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-          f"peak {mem[0]:.2f} vs {mem[1]:.2f} GiB")
-    records.append(record("adm_scale0", "rtvqa_tpu_torch/csrc/adm.cu",
-                          "rtvqa_tpu/kernels/adm_pallas.py:499", err, ms, plain_ms,
-                          adm_scale0_work(b, h, w)))
+          f"den rel {max_rel(den, pd):.3g}); repeat bit-equal; {kernel_time(rec, dev_ms)}, plain "
+          f"{plain_ms:.4f} ms; peak {mem[0]:.2f} vs {mem[1]:.2f} GiB")
+    profile_device("adm_scale0, one call", lambda: adm_scale_cuda(ry, dy, 0))
+    records.append(rec)
     del pa_ref, pa_dis
 
     # Kernel 7: ADM scales 1-3 on the kernel's approximation bands.
@@ -491,15 +499,36 @@ def phase_quality_kernels(dev, ref_np, dis_np) -> list[dict]:
     adm2_p = (pn + tp["num"]) / (pd + tp["den"])
     check_close("adm2", adm2_k, adm2_p, rtol=ADM2_RTOL)
     err = max(max_abs(tk[k], tp[k]) for k in ("num", "den"))
+    check_repeat("adm_tail", tuple(tk.values()), tuple(adm_tail_cuda(a_ref, a_dis).values()))
     ms = time_ms(lambda _: adm_tail_cuda(a_ref, a_dis), [None], 10, dev)
+    dev_ms = device_ms(lambda _: adm_tail_cuda(a_ref, a_dis), [None], 10, dev)
     plain_ms = time_ms(lambda _: adm_tail_plain(a_ref, a_dis), [None], 2, dev)
     mem = (peak_gib(lambda: adm_tail_cuda(a_ref, a_dis)), peak_gib(lambda: adm_tail_plain(a_ref, a_dis)))
+    rec = record("adm_tail", "rtvqa_tpu_torch/csrc/adm.cu", "rtvqa_tpu/kernels/adm_pallas.py:886", err, ms,
+                 plain_ms, adm_tail_work(*a_ref.shape))
     print(f"adm_tail: {tuple(a_ref.shape)} max abs err {err:.3g} (adm2 rel {max_rel(adm2_k, adm2_p):.3g}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; peak {mem[0]:.2f} vs {mem[1]:.2f} GiB")
-    records.append(record("adm_tail", "rtvqa_tpu_torch/csrc/adm.cu",
-                          "rtvqa_tpu/kernels/adm_pallas.py:886", err, ms, plain_ms,
-                          adm_tail_work(*a_ref.shape)))
+          f"repeat bit-equal; {kernel_time(rec, dev_ms)}, plain {plain_ms:.4f} ms; peak {mem[0]:.2f} vs "
+          f"{mem[1]:.2f} GiB")
+    profile_device("adm_tail, one call", lambda: adm_tail_cuda(a_ref, a_dis))
+    records.append(rec)
     return records
+
+
+def check_repeat(label, got, again) -> None:
+    """A repeat call's outputs equal the first call's bit for bit."""
+    torch.cuda.synchronize()
+    for i, (g, a) in enumerate(zip(got, again)):
+        if not torch.equal(g, a):
+            raise AssertionError(f"{label} output {i}: a repeat call gave other bits")
+
+
+def kernel_time(rec: dict, dev_ms) -> str:
+    """A kernel's event time, device time and share of its bound."""
+    from rtvqa_tpu_torch.probes import fmt_ms
+
+    share = "" if dev_ms is None else f", {rec['bound_ms'] / dev_ms:.1%} by device time"
+    return (f"kernel {rec['ms']:.4f} ms (device {fmt_ms(dev_ms)}; {rec['bound_ms'] / rec['ms']:.1%} of the "
+            f"bound {rec['bound_ms']:.4f} by events{share})")
 
 
 def content_frames(kind: str, n: int, h: int, w: int, seed: int):
@@ -534,29 +563,80 @@ def content_frames(kind: str, n: int, h: int, w: int, seed: int):
     return ref, dis
 
 
-def flat_tile_share(ry) -> float:
-    """Share of the luma kernel's (frame, tile) steps with a pixel whose ref
-    window is flat by the kernel's test, sigma1^2 < FLAT_TOL * E[x^2], on
-    the plain version's moments: the share of steps that redo their VIF
-    moments (an estimate: the kernel tests its own FMA moments)."""
-    from rtvqa_tpu_torch.kernels.quality import TAPS17
+def flat_tile_share(x, taps) -> float:
+    """Share of the (frame, 8 x 240 tile) steps of kernel 3's luma kernel
+    (17 taps, on the u8 luma) or of kernel 5 (at one scale) with a pixel
+    whose ref window is flat by the kernels' test, sigma1^2 < FLAT_TOL *
+    E[x^2], on the plain version's moments: the share of steps that redo
+    their VIF moments (an estimate: the kernels test their own FMA moments)."""
     from rtvqa_tpu_torch.vmaf.filters import filter1d_sep
 
-    x = ry.float()
-    mu, e2 = filter1d_sep(x, TAPS17), filter1d_sep(x * x, TAPS17)
+    x = x.float()
+    mu, e2 = filter1d_sep(x, taps), filter1d_sep(x * x, taps)
     flat = ((e2 - mu * mu) < FLAT_TOL * e2).float()
     b, h, w = flat.shape
-    th, tw = LUMA_TILE
+    th, tw = VIF_TILE
     flat = torch.nn.functional.pad(flat, (0, -w % tw, 0, -h % th))
     return float(flat.view(b, -(-h // th), th, -(-w // tw), tw).amax(dim=(2, 4)).mean())
 
 
-def phase_quality_content(dev, b: int, gradient_rec: dict) -> None:
-    """Kernel 3 at b x H x W on content with flat regions (content_frames):
-    held against its plain version, timed beside the gradient + noise
-    frames' time, with the share of tile steps that redo their VIF moments."""
-    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda, quality_fused_plain
+def vif_tail_flat_share(dec_ref) -> dict:
+    """flat_tile_share of kernel 5 at scales 1-3, on the plain version's
+    scale inputs from the scale-1 ref plane."""
+    from rtvqa_tpu_torch.kernels.vif import TAPS
+    from rtvqa_tpu_torch.vmaf.filters import decimate2, filter1d_sep
+
+    x, shares = dec_ref.float(), {}
+    for scale in (1, 2, 3):
+        if scale > 1:
+            x = decimate2(filter1d_sep(x, TAPS[scale]))
+        shares[f"scale{scale}"] = round(flat_tile_share(x, TAPS[scale]), 4)
+    return shares
+
+
+def check_tail_kernels(label, ry, dy, dec) -> dict:
+    """Kernels 5 (on the scale-1 pair ``dec``), 6 and 7 (on the u8 luma
+    pair) against their plain versions with the tolerances above; returns
+    their max relative errors."""
+    from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_scale_plain, adm_tail_cuda, adm_tail_plain
+    from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda, vif_tail_plain
+
+    vk, vp = vif_tail_cuda(*dec), vif_tail_plain(*dec)
+    num, den, a_ref, a_dis = adm_scale_cuda(ry, dy, 0)
+    pn, pd, pa_ref, pa_dis = adm_scale_plain(ry, dy, 0)
+    tk = adm_tail_cuda(a_ref, a_dis)
+    tp = adm_tail_plain(a_ref, a_dis)
+    torch.cuda.synchronize()
+    rels = {}
+    for key in vp:
+        check_close(f"{label} {key}", vk[key], vp[key], rtol=VIF_TAIL_RTOL)
+        rels[key] = max_rel(vk[key], vp[key])
+    for key, g, p, rtol in (("adm0 num", num, pn, ADM_RTOL), ("adm0 den", den, pd, ADM_RTOL),
+                            ("adm tail num", tk["num"], tp["num"], ADM_RTOL),
+                            ("adm tail den", tk["den"], tp["den"], ADM_RTOL),
+                            ("adm2", (num + tk["num"]) / (den + tk["den"]),
+                             (pn + tp["num"]) / (pd + tp["den"]), ADM2_RTOL)):
+        check_close(f"{label} {key}", g, p, rtol=rtol)
+        rels[key] = max_rel(g, p)
+    for key, g, p in (("a_ref", a_ref, pa_ref), ("a_dis", a_dis, pa_dis)):
+        check_close(f"{label} {key}", g, p, rtol=PLANE_RTOL, atol=PLANE_ATOL)
+    return {k: float(f"{v:.3g}") for k, v in rels.items()}
+
+
+def phase_quality_content(dev, b: int, recs: list[dict]) -> None:
+    """Kernels 3, 5, 6 and 7 at b x H x W on content with flat regions
+    (content_frames): held against their plain versions (kernel 5 on kernel
+    3's scale-1 pair, kernel 7 on kernel 6's bands), timed beside the
+    gradient + noise frames' times (recs: the records of
+    phase_quality_kernels), with the share of kernel 3's and kernel 5's tile
+    steps that redo their VIF moments."""
+    from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
+    from rtvqa_tpu_torch.kernels.quality import TAPS17, quality_fused_cuda, quality_fused_plain
+    from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda
     from rtvqa_tpu_torch.probes import device_ms, fmt_ms, time_ms
+
+    def timed(fn):
+        return f"{time_ms(fn, [None], 10, dev):.4f} ms (device {fmt_ms(device_ms(fn, [None], 10, dev))})"
 
     line = []
     for k, kind in enumerate(("flat", "letterbox")):
@@ -568,16 +648,24 @@ def phase_quality_content(dev, b: int, gradient_rec: dict) -> None:
         torch.cuda.synchronize()
         errs = check_quality_fused(f"quality_fused {kind}", got, want, H, W, H // 2, W // 2)
         rel = max_rel(got["vif_scale0"], want["vif_scale0"])
-        del got, want
-        share = flat_tile_share(planes[0])
-        ms = time_ms(lambda _: quality_fused_cuda(*args), [None], 10, dev)
-        dev_ms = device_ms(lambda _: quality_fused_cuda(*args), [None], 10, dev)
-        line.append(f"{kind} {ms:.4f} ms (device {fmt_ms(dev_ms)}; {share:.1%} of tile steps flat; "
-                    f"vif_scale0 rel {rel:.3g}, max abs errs {json.dumps(errs)})")
-        del planes, args
+        del want
+        dec = (got["dec_ref"], got["dec_dis"])
+        ry, dy = planes[0], planes[3]
+        rels = check_tail_kernels(kind, ry, dy, dec)
+        a = adm_scale_cuda(ry, dy, 0)[2:]
+        times = {"quality_fused": timed(lambda _: quality_fused_cuda(*args)),
+                 "vif_tail": timed(lambda _: vif_tail_cuda(*dec)),
+                 "adm_scale0": timed(lambda _: adm_scale_cuda(ry, dy, 0)),
+                 "adm_tail": timed(lambda _: adm_tail_cuda(*a))}
+        line.append(f"{kind}: times {json.dumps(times)}; tile steps flat: kernel 3 "
+                    f"{flat_tile_share(ry, TAPS17):.1%}, kernel 5 {json.dumps(vif_tail_flat_share(dec[0]))}; "
+                    f"vif_scale0 rel {rel:.3g}, kernel 3 max abs errs {json.dumps(errs)}; kernels 5-7 max rel "
+                    f"{json.dumps(rels)}")
+        del planes, args, got, dec, a
         torch.cuda.empty_cache()
-    print(f"quality_fused content: {(b, H, W)} against plain within the tolerances; gradient + noise "
-          f"{gradient_rec['ms']:.4f} ms; " + "; ".join(line))
+    gradient = {r["name"]: round(r["ms"], 4) for r in recs}
+    print(f"quality content: {(b, H, W)}, kernels 3, 5, 6, 7 against plain within the tolerances; gradient + "
+          f"noise {json.dumps(gradient)}; " + "; ".join(line))
 
 
 def phase_quality_oracle(dev) -> None:
@@ -1054,7 +1142,7 @@ def main() -> int:
     first = slice(0, auto_chunk(W, H))
     quality_recs = phase_quality_kernels(dev, [a[first] for a in ref_np], [a[first] for a in dis_np])
     torch.cuda.empty_cache()
-    phase_quality_content(dev, first.stop, quality_recs[0])
+    phase_quality_content(dev, first.stop, quality_recs)
     phase_quality_oracle(dev)
     launches, series = phase_quality(dev, ref_np, dis_np)
     for rec, wrapper in zip(quality_recs, ("quality_fused_cuda", "vif_tail_cuda",

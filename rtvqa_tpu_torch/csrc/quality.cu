@@ -14,7 +14,8 @@
 //    keeps its pixels' FILTER_5 blur in registers from one frame to the
 //    next (a run that starts at frame b0 > 0 first blurs frame b0 - 1;
 //    frame 0 is compared with prev_blur; the chunk's last frame writes the
-//    carry). Staging: the 16-byte row pieces inside the frame are copied
+//    carry). Staging (common.cuh stage_tile, stage_mirror, which kernels 5,
+//    6 and 7 share): the 16-byte row pieces inside the frame are copied
 //    with cp.async into the other of two buffers while the current frame
 //    computes; a tile at a border then fills its pieces outside the frame
 //    by mirroring staged bytes in shared memory (frames whose rows are not
@@ -166,18 +167,10 @@ ssim_sse_kernel(const uint8_t* __restrict__ ref0, const uint8_t* __restrict__ di
     }
     ssim = ssim_end1(win[0], win[1], win[2], win[3]);
   }
-  // Fixed-order block sums: a shuffle tree per warp, then the warps in order.
-  double v[2] = {static_cast<double>(sse), ssim};
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v[q] += __shfl_down_sync(0xffffffffu, v[q], o);
-    if ((tid & 31) == 0) red[q][tid >> 5] = v[q];
-  }
-  __syncthreads();
+  const double v[2] = {static_cast<double>(sse), ssim};
+  double total;
+  block_sums<2>(v, red, total);
   if (tid < 2) {
-    double total = 0.0;
-    for (int k = 0; k < kThreads / 32; ++k) total += red[tid][k];
     put_part(part, f, (tid == 0 ? q_sse : q_ssim) + plane, n_tiles, blockIdx.y * gridDim.x + blockIdx.x, total);
   }
 }
@@ -202,9 +195,6 @@ constexpr int kRuns = kLumaTW / kRun;       // 30 runs per row
 constexpr int kDecRows = kLumaTH / 2;       // even rows of the tile
 constexpr int kBlk = kLumaTW / 4 + 1;       // 4x4 blocks per block row the windows need
 constexpr int kWin = kLumaTW / 4;           // SSIM windows per block row the tile owns
-// A pixel whose computed sigma1^2 is below kFlatTol * E[x^2] sits in a flat
-// ref window (10x the worst-case f32 rounding of that difference).
-constexpr float kFlatTol = 1e-4f;
 static_assert(kCols == kThreads, "one vertical-pass column per thread");
 static_assert(kLumaTW % 16 == 0 && kLumaTH % 4 == 0, "tiles align with 4x4 blocks and 16-byte rows");
 
@@ -217,125 +207,9 @@ struct LumaSmem {
   double sums[5][kThreads];          // per thread: sse, ssim, sad, vif num, vif den
 };
 
-// Padded index of vertical-pass column c: 16-byte loads at a stride of 8
-// columns across a quarter-warp then hit distinct banks.
-__device__ __forceinline__ int pc(int c) { return c + ((c >> 5) << 2); }
-
 // Exact u8 -> f32 (2^23 + v, minus 2^23) without a conversion instruction.
 __device__ __forceinline__ float u8f(uint8_t v) {
   return __int_as_float(0x4B000000 | v) - 8388608.0f;
-}
-
-template <bool kExact>
-__device__ __forceinline__ float tap(float acc, float t, float v) {
-  return kExact ? add(acc, mul(t, v)) : fmaf(t, v, acc);
-}
-
-// The plain-order path divides and takes log2 as the plain version does
-// (IEEE division, log2f); the FMA path uses the hardware reciprocal and
-// log2 (a few ulp): a small share of VIF scale 0's error against the plain
-// version, far below its tolerance, for ~10% of the kernel's time at 1080p
-// (PERF.md section 6).
-template <bool kExact>
-__device__ __forceinline__ float quot(float a, float b) {
-  return kExact ? __fdiv_rn(a, b) : __fdividef(a, b);
-}
-
-template <bool kExact>
-__device__ __forceinline__ float lg2(float x) {
-  return kExact ? log2f(x) : __log2f(x);
-}
-
-// The stage images hold frame rows y0-8 .. y0+16 and columns x0-16 ..
-// x0+256 of ref and dis, reflected at the frame's borders, as 16-byte
-// pieces. In a frame with 16-byte rows and bases (`aligned`) each piece
-// inside the frame is copied by one cp.async, and the others (tiles at a
-// border) are mirrored from the copied ones in shared memory; in any other
-// frame every piece is gathered from global memory.
-constexpr int kPieces = kStageCols / 16;
-
-__device__ __forceinline__ bool piece_inside(int gy, int gx, int h, int w) {
-  return gy >= 0 && gy < h && gx >= 0 && gx + 16 <= w;
-}
-
-// numpy reflect of index i at one border, clamped into [lo, hi] (a range
-// of [0, n)). Every index the stencils of valid outputs read lies within 8
-// of the frame (h, w >= 9), where one reflection is exact and the clamp
-// does not bite; the others only need some staged pixel.
-__device__ __forceinline__ int mirror_in(int i, int n, int lo, int hi) {
-  i = i < 0 ? -i : (i >= n ? 2 * (n - 1) - i : i);
-  return min(max(i, lo), hi);
-}
-
-// The 16 bytes of frame row `row` at columns gx .. gx+15, each reflected
-// at the frame's width, packed four to a word.
-__device__ __forceinline__ uint4 gather_piece(const uint8_t* row, int gx, int w) {
-  int idx[16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) idx[e] = mirror_in(gx + e, w, 0, w - 1);
-  unsigned v[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int e = 0; e < 16; ++e) v[e >> 2] |= static_cast<unsigned>(row[idx[e]]) << (8 * (e & 3));
-  return make_uint4(v[0], v[1], v[2], v[3]);
-}
-
-// Stages one frame: in an aligned frame starts the cp.async copies of the
-// pieces inside it and commits them as one group; in any other frame
-// gathers every piece with plain loads (visible to the block after the
-// next __syncthreads).
-__device__ __forceinline__ void stage_frame(uint8_t* sr, uint8_t* sd, const uint8_t* ref,
-                                            const uint8_t* dis, int h, int w, int y0, int x0,
-                                            bool aligned) {
-  for (int i = threadIdx.x; i < 2 * kStageRows * kPieces; i += kThreads) {
-    const int img = i >= kStageRows * kPieces;
-    const int j = i - img * kStageRows * kPieces;
-    const int r = j / kPieces, k = j - r * kPieces;
-    const int gy = y0 - kR + r, gx = x0 - kHaloX + 16 * k;
-    uint8_t* dst = (img ? sd : sr) + r * kStageCols + 16 * k;
-    const uint8_t* src = img ? dis : ref;
-    if (!aligned) {
-      *reinterpret_cast<uint4*>(dst) =
-          gather_piece(src + static_cast<size_t>(mirror_in(gy, h, 0, h - 1)) * w, gx, w);
-    } else if (piece_inside(gy, gx, h, w)) {
-      cp_async16(dst, src + static_cast<size_t>(gy) * w + gx);
-    }
-  }
-  cp_async_commit();
-}
-
-// Fills the bytes of an aligned frame's stage that stage_frame did not
-// copy, once the copies have landed: each takes the staged byte of the
-// frame pixel it mirrors, clamped into the frame's part of the staged
-// window, which the copies hold. The copied bytes are rows [r0, r1) x
-// columns [c0, c1) of the stage; the others (rows outside [r0, r1), then
-// the columns outside [c0, c1) of the rows inside) are numbered and shared
-// out one byte per thread and step.
-__device__ __forceinline__ void mirror_border(uint8_t* sr, uint8_t* sd, int h, int w, int y0, int x0) {
-  const int ry0 = y0 - kR, cx0 = x0 - kHaloX;
-  const int r_lo = max(ry0, 0), r_hi = min(ry0 + kStageRows, h) - 1;
-  const int c_lo = max(cx0, 0), c_hi = min(cx0 + kStageCols, w) - 1;
-  const int r0 = r_lo - ry0, r1 = r_hi + 1 - ry0, c0 = c_lo - cx0, c1 = c_hi + 1 - cx0;
-  const int outer = (kStageRows - (r1 - r0)) * kStageCols;  // bytes of the rows outside
-  const int side = kStageCols - (c1 - c0);                  // bytes outside per row inside
-  const int per_img = outer + (r1 - r0) * side;
-  for (int t = threadIdx.x; t < 2 * per_img; t += kThreads) {
-    const int img = t >= per_img;
-    const int u = t - img * per_img;
-    int r, c;
-    if (u < outer) {
-      r = u / kStageCols;
-      c = u - r * kStageCols;
-      if (r >= r0) r += r1 - r0;  // the rows below the copied ones
-    } else {
-      const int v = u - outer;
-      r = r0 + v / side;
-      c = v - (r - r0) * side;
-      if (c >= c0) c += c1 - c0;  // the columns right of the copied ones
-    }
-    uint8_t* stage = img ? sd : sr;
-    stage[r * kStageCols + c] = stage[(mirror_in(ry0 + r, h, r_lo, r_hi) - ry0) * kStageCols +
-                                      mirror_in(cx0 + c, w, c_lo, c_hi) - cx0];
-  }
 }
 
 // The vertical pass on this thread's column (image column x0 - 8 +
@@ -439,19 +313,6 @@ __device__ __forceinline__ void vert_blur(const uint8_t* sr, LumaSmem& s, const 
   for (int i = 0; i < kLumaTH; ++i) s.blur[i][pc(c)] = bl[i];
 }
 
-// Load n float4 of a padded vertical-pass row from column c0 (a multiple of 4).
-template <int N>
-__device__ __forceinline__ void load_row(const float* row, int c0, float* v) {
-#pragma unroll
-  for (int s = 0; s < N; ++s) {
-    const float4 f = *reinterpret_cast<const float4*>(row + pc(c0 + 4 * s));
-    v[4 * s] = f.x;
-    v[4 * s + 1] = f.y;
-    v[4 * s + 2] = f.z;
-    v[4 * s + 3] = f.w;
-  }
-}
-
 // Horizontal 17-tap pass and the VIF statistics for this thread's run
 // (row warp, columns 8 * lane .. + 7 of the tile): adds its num and den
 // sums over the valid pixels; flat |= a flat ref window among them.
@@ -478,32 +339,10 @@ __device__ __forceinline__ void horiz_vif(const float (*mom)[kLumaTH][kPitch], c
 #pragma unroll
   for (int k = 0; k < kRun; ++k) {
     if (k >= n_valid) break;
-    const float mu1 = m[0][k], mu2 = m[1][k];
-    float sigma1 = sub(m[2][k], mul(mu1, mu1));
-    float sigma2 = sub(m[3][k], mul(mu2, mu2));
-    const float sigma12 = sub(m[4][k], mul(mu1, mu2));
-    flat |= sigma1 < kFlatTol * m[2][k];
-    sigma1 = fmaxf(sigma1, 0.0f);
-    sigma2 = fmaxf(sigma2, 0.0f);
-    float g = quot<kExact>(sigma12, add(sigma1, kVifEps));
-    float sv_sq = sub(sigma2, mul(g, sigma12));
-    if (sigma1 < kVifEps) {
-      g = 0.0f;
-      sv_sq = sigma2;
-      sigma1 = 0.0f;
-    }
-    if (sigma2 < kVifEps) {
-      g = 0.0f;
-      sv_sq = 0.0f;
-    }
-    if (g < 0.0f) {
-      sv_sq = sigma2;
-      g = 0.0f;
-    }
-    sv_sq = fmaxf(sv_sq, kVifEps);
-    if (has_egl) g = fminf(g, egl);
-    num_run += lg2<kExact>(add(1.0f, quot<kExact>(mul(mul(g, g), sigma1), add(sv_sq, kSigmaNsq))));
-    den_run += lg2<kExact>(add(1.0f, mul(sigma1, 1.0f / kSigmaNsq)));  // = sigma1 / 2, exactly
+    float num, den;
+    flat |= vif_pixel<kExact>(m[0][k], m[1][k], m[2][k], m[3][k], m[4][k], egl, has_egl, num, den);
+    num_run += num;
+    den_run += den;
   }
   num_acc += num_run;
   den_acc += den_run;
@@ -617,17 +456,21 @@ quality_luma_kernel(const uint8_t* __restrict__ ry, const uint8_t* __restrict__ 
                  ? prev_blur[static_cast<size_t>(y0 + row) * w + x0 + kRun * lane + k] : 0.0f;
   }
 
-  const bool mirror = aligned && (y0 < kR || y0 + kLumaTH + kR > h || x0 < kHaloX ||
-                                  x0 + kLumaTW + kHaloX > w);  // some pieces are not copied
+  // The stage (common.cuh stage_tile): frame rows y0 - 8 .. y0 + 15 and
+  // columns x0 - 16 .. x0 + 255, reflected at the frame's borders; every
+  // index the stencils of valid outputs read lies within 8 of the frame
+  // (h, w >= 9).
+  const bool mirror = aligned && stage_at_border<kStageRows, kStageCols>(h, w, y0 - kR, x0 - kHaloX);
   // Frame f + 1 is staged while frame f computes. A tile at a border mirrors
   // a frame's missing bytes once its copies have landed, then waits once
   // more; other tiles need only the barrier that ends the frame before.
   const int first = b0 > 0 ? b0 - 1 : b0;
-  stage_frame(s.stage[0][0], s.stage[0][1], ry + first * plane, dy + first * plane, h, w, y0, x0, aligned);
+  stage_tile<uint8_t, kStageRows, kStageCols>(s.stage[0][0], s.stage[0][1], ry + first * plane,
+                                              dy + first * plane, h, w, y0 - kR, x0 - kHaloX, aligned);
   cp_async_wait<0>();
   __syncthreads();
   if (mirror) {
-    mirror_border(s.stage[0][0], s.stage[0][1], h, w, y0, x0);
+    stage_mirror<uint8_t, kStageRows, kStageCols>(s.stage[0][0], s.stage[0][1], h, w, y0 - kR, x0 - kHaloX);
     __syncthreads();
   }
   for (int f = first, k = 0; f < b1; ++f, ++k) {
@@ -636,7 +479,8 @@ quality_luma_kernel(const uint8_t* __restrict__ ry, const uint8_t* __restrict__ 
     uint8_t* nr = s.stage[(k + 1) & 1][0];
     uint8_t* nd = s.stage[(k + 1) & 1][1];
     if (f + 1 < b1) {
-      stage_frame(nr, nd, ry + (f + 1) * plane, dy + (f + 1) * plane, h, w, y0, x0, aligned);
+      stage_tile<uint8_t, kStageRows, kStageCols>(nr, nd, ry + (f + 1) * plane, dy + (f + 1) * plane, h, w,
+                                                  y0 - kR, x0 - kHaloX, aligned);
     }
     const bool pre = f < b0;  // the frame before the run: its blur only
     double v[5] = {0.0, 0.0, 0.0, 0.0, 0.0};  // sse, ssim, sad, num, den
@@ -679,7 +523,7 @@ quality_luma_kernel(const uint8_t* __restrict__ ry, const uint8_t* __restrict__ 
     cp_async_wait<0>();
     __syncthreads();  // frame f is done with the buffers; frame f + 1's copies have landed
     if (mirror && f + 1 < b1) {
-      mirror_border(nr, nd, h, w, y0, x0);
+      stage_mirror<uint8_t, kStageRows, kStageCols>(nr, nd, h, w, y0 - kR, x0 - kHaloX);
       __syncthreads();
     }
   }
@@ -781,7 +625,7 @@ extern "C" int rtvqa_quality_fused(const uint8_t* ry, const uint8_t* ru, const u
   const dim3 tiles(cdiv(w, kLumaTW), cdiv(h, kLumaTH));
   const int resident = l.blocks_per_sm * l.sms;
   const int run = luma_run(b, tiles.x * tiles.y, resident > 0 ? resident : 1);
-  const int aligned = w % 16 == 0 && ((reinterpret_cast<uintptr_t>(ry) | reinterpret_cast<uintptr_t>(dy)) & 15) == 0;
+  const int aligned = stage_aligned(ry, dy, w);
   quality_luma_kernel<<<dim3(tiles.x, tiles.y, cdiv(b, run)), kThreads, sizeof(LumaSmem), stream>>>(
       ry, dy, prev_blur, b, h, w, run, aligned, make_taps(taps17, 17), make_taps(taps9, 9),
       make_taps(taps_blur, 5), egl, has_egl, scratch, n_tiles, dec_ref, dec_dis, blur_carry);

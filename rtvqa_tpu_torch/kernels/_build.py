@@ -150,6 +150,12 @@ def load_library() -> ctypes.CDLL:
         lib.rtvqa_adm_scale.argtypes = (
             [ptr, ptr] + [i32] * 4 + [ptr] + [f32] * 4 + [i32, i32, f32, i32] + [ptr] * 5)
         lib.rtvqa_adm_scale.restype = i32
+        lib.rtvqa_adm_tail_scratch_floats.argtypes = [i32] * 3
+        lib.rtvqa_adm_tail_scratch_floats.restype = i64
+        lib.rtvqa_adm_tail_scratch_doubles.argtypes = [i32] * 3
+        lib.rtvqa_adm_tail_scratch_doubles.restype = i64
+        lib.rtvqa_adm_tail.argtypes = [ptr, ptr] + [i32] * 3 + [ptr] * 3 + [f32, f32, i32] + [ptr] * 4
+        lib.rtvqa_adm_tail.restype = i32
         lib.rtvqa_adm_input.argtypes = [ptr, ptr] + [i32] * 7 + [ptr] * 3
         lib.rtvqa_adm_input.restype = i32
         lib.rtvqa_strip_sum.argtypes = [ptr] + [i32] * 4 + [ptr] * 2

@@ -2,11 +2,14 @@
 
 ``adm_scale_cuda`` replaces ``rtvqa_tpu/kernels/adm_pallas.py::
 adm_scale_pallas`` (scale 0 on the uint8 luma pair); ``adm_tail_cuda``
-replaces ``adm_pallas.py::adm_tail_pallas`` by launching the same per-scale
-kernel for scales 1-3 on the f32 approximation bands. The kernel returns
-the six center-crop L3 sums per frame; the cube roots and the per-band
-``cbrt(area/32)`` offsets are taken here, after the sums, by the same
-``vmaf.adm.pool_scale`` as the plain versions. ``adm_input_cuda`` (kernel
+replaces ``adm_pallas.py::adm_tail_pallas``: the same per-scale kernel for
+scales 1-3 on the f32 approximation bands. The kernel returns
+the six center-crop L3 sums per frame and scale; the cube roots and the
+per-band ``cbrt(area/32)`` offsets are taken here, after the sums, by the
+same ``vmaf.adm.pool_scale`` as the plain versions (for the three scales
+of ``adm_tail_cuda`` in one call). ``adm_tail_cuda`` makes one
+call into the library (``rtvqa_adm_tail``: the kernel once per scale on
+one scratch, one fixed-order reduce). ``adm_input_cuda`` (kernel
 6a) replaces ``adm_scale_pallas(..., stages=0)``: kernel 6's input path
 and a checksum only, to time what kernel 6 pays to load its windows. The
 wrappers take the plain versions only for tensors on the CPU; for CUDA
@@ -24,7 +27,8 @@ from rtvqa_tpu_torch.vmaf.adm import (
     DB2_HI,
     DB2_LO,
     _center_crop_slices,
-    adm_band_cubes,
+    adm_one_scale,
+    crop_offset,
     csf_rfactors,
     pool_scale,
 )
@@ -35,8 +39,7 @@ DB2 = np.concatenate([DB2_LO, DB2_HI]).astype(np.float32)
 def adm_scale_plain(ref, dis, scale: int = 0, egl=None):
     """(num (B,), den (B,), a_ref, a_dis) of one scale, offsets included;
     a_* are the (B, ceil(H/2), ceil(W/2)) f32 next-scale inputs."""
-    sums, a_o, a_t = adm_band_cubes(ref.float(), dis.float(), scale, egl)
-    num, den = pool_scale(sums, a_o.shape[-2], a_o.shape[-1])
+    a_o, a_t, num, den = adm_one_scale(ref.float(), dis.float(), scale, egl)
     return num, den, a_o, a_t
 
 
@@ -91,22 +94,45 @@ def adm_scale_cuda(ref, dis, scale: int = 0, egl=None):
         return adm_scale_plain(ref, dis, scale, egl)
     sums, a_ref, a_dis = _launch(ref, dis, scale, egl)
     adm_scale_cuda.launches += 1
-    num, den = pool_scale(sums, a_ref.shape[-2], a_ref.shape[-1])
+    num, den = pool_scale(torch.stack(sums, dim=-1), crop_offset(a_ref.shape[-2], a_ref.shape[-1]))
     return num, den, a_ref, a_dis
 
 
 def adm_tail_cuda(a_ref, a_dis, egl=None) -> dict:
-    """Scales 1-3 as three launches of the per-scale kernel on the f32
+    """Scales 1-3 in one call of the kernel library on the f32
     approximation bands; the same output as :func:`adm_tail_plain`."""
     if a_ref.device.type == "cpu":
         return adm_tail_plain(a_ref, a_dis, egl)
-    num = den = 0.0
-    o, t = a_ref, a_dis
+    require_cuda("a_ref", a_ref, torch.float32, 3)
+    require_cuda("a_dis", a_dis, torch.float32, 3)
+    _check_pair(a_ref, a_dis)
+    b, h, w = a_ref.shape
+    grids, csf, crop = [], [], []
     for scale in (1, 2, 3):
-        sums, o, t = _launch(o, t, scale, egl)
-        n_s, d_s = pool_scale(sums, o.shape[-2], o.shape[-1])
-        num, den = num + n_s, den + d_s
+        h, w = (h + 1) // 2, (w + 1) // 2
+        ys, xs = _center_crop_slices(h, w)
+        grids.append((h, w))
+        csf.extend(csf_rfactors(scale))
+        crop.extend((ys.start, xs.start))
+    csf, crop = np.asarray(csf, np.float32), np.asarray(crop, np.int32)
+    dev = a_ref.device
+    lib = load_library()
+    img = torch.empty((max(lib.rtvqa_adm_tail_scratch_floats(*a_ref.shape), 1),),
+                      dtype=torch.float32, device=dev)
+    part = torch.empty((max(lib.rtvqa_adm_tail_scratch_doubles(*a_ref.shape), 1),),
+                       dtype=torch.float64, device=dev)
+    sums = torch.empty((b, 18), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.rtvqa_adm_tail(
+            a_ref.data_ptr(), a_dis.data_ptr(), *a_ref.shape, DB2.ctypes.data, csf.ctypes.data,
+            crop.ctypes.data, float(np.float32(_COS_1DEG_SQ)),
+            float(egl if egl is not None else 0.0), int(egl is not None),
+            img.data_ptr(), part.data_ptr(), sums.data_ptr(), stream,
+        )
+    check_launch(lib, code, "adm_tail")
     adm_tail_cuda.launches += 1
+    num, den = pool_scale(sums.float(), sum(crop_offset(h2, w2) for h2, w2 in grids))
     return {"num": num, "den": den}
 
 

@@ -136,20 +136,19 @@ def adm_band_cubes(o, t, scale: int, enhn_gain_limit=None):
     return tuple(sums), o, t
 
 
-def pool_scale(sums, h: int, w: int):
-    """(num, den) of one scale from its six L3 sums on an (h, w) subband
-    grid: cube roots after the sums, plus the three per-band offsets."""
-    offset = crop_offset(h, w)
-    third = 1.0 / 3.0
-    num = sums[0] ** third + sums[2] ** third + sums[4] ** third + 3.0 * offset
-    den = sums[1] ** third + sums[3] ** third + sums[5] ** third + 3.0 * offset
-    return num, den
+def pool_scale(sums, offset: float):
+    """(num, den) summed over k scales from their L3 sums, laid out
+    (..., 6k) as (num_h, den_h, num_v, den_v, num_d, den_d) per scale, and
+    the sum of the k scales' :func:`crop_offset`: cube roots after the
+    sums, plus the three per-band offsets of each scale."""
+    roots = sums ** (1.0 / 3.0)
+    return roots[..., 0::2].sum(dim=-1) + 3.0 * offset, roots[..., 1::2].sum(dim=-1) + 3.0 * offset
 
 
 def adm_one_scale(o, t, scale: int, enhn_gain_limit=None):
     """One scale: (a_ref, a_dis, num, den), offsets included."""
     sums, a_o, a_t = adm_band_cubes(o, t, scale, enhn_gain_limit)
-    num, den = pool_scale(sums, a_o.shape[-2], a_o.shape[-1])
+    num, den = pool_scale(torch.stack(sums, dim=-1), crop_offset(a_o.shape[-2], a_o.shape[-1]))
     return a_o, a_t, num, den
 
 

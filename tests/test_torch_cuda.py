@@ -120,7 +120,7 @@ def _rel(got, want):
     return float(((got.double() - want.double()).abs() / want.double().abs().clamp_min(1e-30)).max())
 
 
-QUALITY_SHAPES = [(3, 48, 64), (2, 50, 71), (3, 1080, 1920)]
+QUALITY_SHAPES = [(3, 48, 64), (2, 50, 71), (3, 1080, 1920), (4, 1440, 2560), (2, 2160, 3840)]
 
 
 @pytest.mark.parametrize("b,h,w", QUALITY_SHAPES)
@@ -495,3 +495,150 @@ def test_strip_sum_kernel_full_and_odd_widths(dev, shape, dtype):
         got = strip_sum_cuda(frames)
         torch.cuda.synchronize()
         assert _rel(got, strip_sum_plain(frames)) < 1e-6
+
+
+# Kernels 5, 6 and 7 at shapes that cut their tiles unevenly (kernel 6:
+# 16 x 32 subband tiles in runs of 4 down a band; kernel 5: 8 x 240 tiles
+# of each scale) and at the widths of the 1080p, 1440p and UHD routes.
+TAIL_SHAPES = [(2, 50, 71), (1, 33, 40), (3, 1080, 1920), (4, 1440, 2560), (2, 2160, 3840)]
+
+
+def _scale1(x):
+    """The VIF scale-1 input of a luma plane: the 9-tap filter, even rows and
+    columns kept (what kernel 3 writes)."""
+    from rtvqa_tpu_torch.kernels.vif import TAPS
+    from rtvqa_tpu_torch.vmaf.filters import decimate2, filter1d_sep
+
+    return decimate2(filter1d_sep(x.float(), TAPS[1])).contiguous()
+
+
+def _letterbox_inputs(rng, b, h, w, dev):
+    """Gradient + noise luma, dis = ref + noise, with black bars (Y 16) of
+    138/1080 of the rows at the top and bottom, equal in ref and dis."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = ((xx * 3 + yy * 2)[None] + 7 * np.arange(b)[:, None, None]) % 256
+    ref = np.clip(base + rng.integers(0, 8, (b, h, w)), 0, 255).astype(np.uint8)
+    dis = np.clip(ref.astype(np.int16) + rng.integers(-4, 5, (b, h, w)), 0, 255).astype(np.uint8)
+    bar = max(1, 138 * h // 1080)
+    for a in (ref, dis):
+        a[:, :bar] = 16
+        a[:, h - bar:] = 16
+    return torch.from_numpy(ref).to(dev), torch.from_numpy(dis).to(dev)
+
+
+def _check_tail_kernels(ry, dy, egl=None):
+    """Kernels 5, 6 and 7 on a luma pair against their plain versions
+    (module docstring's tolerances); kernel 5 on the pair's scale-1 input.
+    Each wrapper launches once per call, and a repeat call gives the same
+    bits."""
+    from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_scale_plain, adm_tail_cuda, adm_tail_plain
+    from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda, vif_tail_plain
+
+    dec = (_scale1(ry), _scale1(dy))
+    before = vif_tail_cuda.launches, adm_scale_cuda.launches, adm_tail_cuda.launches
+    vk = vif_tail_cuda(*dec, egl=egl)
+    num, den, a_ref, a_dis = adm_scale_cuda(ry, dy, 0, egl)
+    tk = adm_tail_cuda(a_ref, a_dis, egl)
+    torch.cuda.synchronize()
+    assert (vif_tail_cuda.launches, adm_scale_cuda.launches, adm_tail_cuda.launches) == tuple(
+        n + 1 for n in before)
+    vp = vif_tail_plain(*dec, egl=egl)
+    for key in vp:
+        assert _rel(vk[key], vp[key]) < 3e-4, key
+    pn, pd, pa_ref, pa_dis = adm_scale_plain(ry, dy, 0, egl)
+    assert _rel(num, pn) < 2e-4 and _rel(den, pd) < 2e-4
+    torch.testing.assert_close(a_ref, pa_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(a_dis, pa_dis, rtol=1e-4, atol=1e-3)
+    # Kernel 7 on the kernel's own bands, as the chunk runs it.
+    tp = adm_tail_plain(a_ref, a_dis, egl)
+    assert _rel(tk["num"], tp["num"]) < 2e-4 and _rel(tk["den"], tp["den"]) < 2e-4
+    assert _rel((num + tk["num"]) / (den + tk["den"]), (pn + tp["num"]) / (pd + tp["den"])) < 3e-4
+    again = vif_tail_cuda(*dec, egl=egl), adm_scale_cuda(ry, dy, 0, egl), adm_tail_cuda(a_ref, a_dis, egl)
+    torch.cuda.synchronize()
+    for key in vk:
+        assert torch.equal(vk[key], again[0][key]), key
+    for g, a in zip((num, den, a_ref, a_dis), again[1]):
+        assert torch.equal(g, a)
+    for key in tk:
+        assert torch.equal(tk[key], again[2][key]), key
+
+
+@pytest.mark.parametrize("b,h,w", TAIL_SHAPES)
+@pytest.mark.parametrize("egl", [None, 1.0])
+def test_tail_kernels_uneven_tiles(dev, b, h, w, egl):
+    x = _quality_inputs(np.random.default_rng(40), b, h, w, dev)
+    _check_tail_kernels(x[0], x[3], egl)
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 270, 480), (2, 1080, 1920)])
+@pytest.mark.parametrize("content", ["quadrants", "white", "letterbox"])
+def test_tail_kernels_flat_content(dev, b, h, w, content):
+    """Flat and letterboxed frames, whose flat ref windows at scales 1-3
+    send kernel 5's tiles to the plain-order moments, and give kernel 6 and
+    7 constant bands."""
+    rng = np.random.default_rng(41)
+    if content == "letterbox":
+        ry, dy = _letterbox_inputs(rng, b, h, w, dev)
+    else:
+        levels = (255, 128, 16, 235) if content == "quadrants" else (255, 255, 255, 255)
+        x = _flat_inputs(rng, b, h, w, levels, dev)
+        ry, dy = x[0], x[3]
+    _check_tail_kernels(ry, dy)
+
+
+@pytest.mark.parametrize("shape", [(2, 50, 71), (2, 64, 482), (1, 1080, 1921)])
+@pytest.mark.parametrize("wrapper", ["adm_scale", "adm_tail"])
+def test_adm_scale_kernel_f32_unaligned(dev, shape, wrapper):
+    """The ADM kernel on f32 frames whose rows are not whole 16-byte pieces,
+    and on aligned-width frames one element into storage: the gathered
+    stage, against the plain version. Through adm_scale_cuda at scale 1
+    (kernel 6 on f32, as ADM_DIGEST_CASES launches it) and adm_tail_cuda
+    (kernel 7, the f32 launches of the quality route)."""
+    from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_scale_plain, adm_tail_cuda, adm_tail_plain
+
+    x = _quality_inputs(np.random.default_rng(42), *shape, dev)
+    ref, dis = x[0].float(), x[3].float()
+    b, h, w = shape
+    even = w - w % 4
+    store = torch.zeros(2, b * h * even + 1, device=dev)
+    store[0, 1:] = ref[..., :even].flatten()
+    store[1, 1:] = dis[..., :even].flatten()
+    cases = [(ref, dis), (store[0, 1:].view(b, h, even), store[1, 1:].view(b, h, even))]
+    for r, d in cases:
+        if wrapper == "adm_tail":
+            got, want = adm_tail_cuda(r, d), adm_tail_plain(r, d)
+            torch.cuda.synchronize()
+            assert _rel(got["num"], want["num"]) < 2e-4 and _rel(got["den"], want["den"]) < 2e-4
+            continue
+        got, want = adm_scale_cuda(r, d, 1), adm_scale_plain(r, d, 1)
+        torch.cuda.synchronize()
+        assert _rel(got[0], want[0]) < 2e-4 and _rel(got[1], want[1]) < 2e-4
+        for g, p in zip(got[2:], want[2:]):
+            torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-3)
+
+
+def test_chunk_kernels_match_synthetic_golden(dev):
+    """ROADMAP C1: the kernel chunk on camera-plausible 1080p frames (flat
+    squares and chroma) against the golden frozen from the JAX package's CPU
+    chunk path, within ROADMAP C's tolerances: MSE/PSNR rel 1e-6 (integer
+    sums), SSIM abs 1e-4, motion SAD rel 1e-5 / abs 1e-5 (kernel 3's SAD
+    tolerance), VIF and ADM rel 3e-4."""
+    import importlib.util
+    import os
+
+    from rtvqa_tpu_torch.metrics.full_reference import CHUNK_KEYS, chunk_kernels
+
+    # Loaded by path: the card's machine runs this file without the tests package.
+    spec = importlib.util.spec_from_file_location(
+        "torch_synthetic_golden", os.path.join(os.path.dirname(__file__), "test_torch_synthetic_golden.py"))
+    g = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(g)
+    golden = np.load(g.GOLDEN_PATH)
+    ref, dis = g.make_pair()
+    assert g.digest(ref) == str(golden["digest_ref"]) and g.digest(dis) == str(golden["digest_dis"])
+    planes = [torch.from_numpy(a).to(dev) for a in (*ref, *dis)]
+    packed, _ = chunk_kernels(*planes, torch.zeros((g.H, g.W), device=dev), False)
+    tols = {"mse": (1e-6, 0.0), "psnr": (1e-6, 0.0), "ssim": (0.0, 1e-4), "motion": (1e-5, 1e-5),
+            "vif": (3e-4, 0.0), "adm": (3e-4, 0.0)}
+    worst = g.check_golden(packed.cpu().numpy(), golden, CHUNK_KEYS, tols)
+    print(f"max rel errors against the golden: {worst}")
