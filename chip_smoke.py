@@ -9,7 +9,9 @@ cannot decode there):
 
 * complexity (``quality_backend: "none"``): the gray and block-match
   kernels against their plain versions at the main path's shapes (128
-  frames; 127 half-resolution pyramid pairs), the suite against the
+  frames; 127 half-resolution pyramid pairs), the block-match kernel's
+  index fields on non-integer frames against ``MOTION_INDEX_DIGEST``
+  (``tests/test_torch_cuda.py``), the suite against the
   repository's NumPy oracles on a small input, then
   ``calculate_average_scene_complexity`` once on the kernels and once on
   the plain versions;
@@ -33,9 +35,10 @@ cannot decode there):
   ``calculate_average_scene_complexity`` on the same sampled frames;
 * the wide route at DCI 4K (4096x2160, frames wider than 3840): kernel 4
   (VIF at one scale) against its plain version at each scale of a 14-frame
-  chunk, the four-scale chain against the fused quality kernel's and the
-  VIF tail's values on 1080p frames, then the chunk loop over 28 pairs in
-  two chunks on the kernels and on the plain versions;
+  chunk, also on flat quadrants and on letterboxed 2.39:1 scope content,
+  the four-scale chain against the fused quality kernel's and the VIF
+  tail's values on 1080p frames, then the chunk loop over 28 pairs in two
+  chunks on the kernels and on the plain versions;
 * the measurement path (``trace`` and ``probes``): the quality loop once
   under ``obs/profiler.py::device_trace``, whose exported trace must name
   every ``__global__`` kernel of the route; kernels 6a (ADM scale 0's input
@@ -105,6 +108,7 @@ STRIP_SUM_RTOL = 1e-6         # scripts/probe_int8_dma.py's own check
 # (kFlatTol), from csrc/quality.cu, csrc/vif.cu and csrc/common.cuh.
 FLAT_LEVELS = (255, 128, 16, 235)
 BAR_ROWS = 138
+DCI_BAR_ROWS = 222             # (2160 - 1716) / 2: 2.39:1 scope content in a DCI-4K frame
 VIF_TILE = (8, 240)
 FLAT_TOL = 1e-4
 # The quality route's __global__ kernels, which the trace must name.
@@ -250,10 +254,10 @@ def phase_gray(dev, y, u, v) -> dict:
 
 
 def phase_motion(dev, gray) -> dict:
-    from rtvqa_tpu_torch.kernels.motion import block_match_motion_cuda
+    from rtvqa_tpu_torch.kernels.motion import _launch, block_match_motion_cuda
     from rtvqa_tpu_torch.obs.roofline import motion_work
     from rtvqa_tpu_torch.ops.motion import block_match_motion, down2_mean
-    from rtvqa_tpu_torch.probes import time_ms
+    from rtvqa_tpu_torch.probes import device_ms, time_ms
 
     bp, rp = BLOCK // 2, RADIUS // 2
     gh = down2_mean(gray)
@@ -276,25 +280,37 @@ def phase_motion(dev, gray) -> dict:
     k_static = block_match_motion_cuda(ip, ip, bp, rp)
     if not bool((k_static == 0).all()):
         raise AssertionError(f"motion on a static scene not 0: {k_static}")
+    # The index fields on non-integer frames: the digest the card tests hold.
+    tests = load_tests_module("test_torch_cuda")
+    digest = tests.motion_index_digest(lambda *a: _launch(*a)[0], dev)
+    if digest != tests.MOTION_INDEX_DIGEST:
+        raise AssertionError(f"motion index fields: digest {digest}, not {tests.MOTION_INDEX_DIGEST}")
 
     ms = time_ms(lambda _: block_match_motion_cuda(prev, curr, bp, rp), [None], 10, dev)
+    dev_ms = device_ms(lambda _: block_match_motion_cuda(prev, curr, bp, rp), [None], 10, dev)
     plain_ms = time_ms(lambda _: block_match_motion(prev, curr, bp, rp), [None], 3, dev)
+    rec = record("block_match_motion", "rtvqa_tpu_torch/csrc/motion.cu",
+                 "rtvqa_tpu/kernels/motion_pallas.py:228", err, ms, plain_ms,
+                 motion_work(*prev.shape, bp, rp))
     print(f"motion: {tuple(prev.shape)} pairs, block {bp} r {rp}: max_abs_err {err:.3g} "
-          f"(rel {rel:.3g}); integer pair exact ({float(k_int[0]):.6f}), static 0; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return record("block_match_motion", "rtvqa_tpu_torch/csrc/motion.cu",
-                  "rtvqa_tpu/kernels/motion_pallas.py:228", err, ms, plain_ms,
-                  motion_work(*prev.shape, bp, rp))
+          f"(rel {rel:.3g}); integer pair exact ({float(k_int[0]):.6f}), static 0; index fields "
+          f"equal MOTION_INDEX_DIGEST; {kernel_time(rec, dev_ms)}, plain {plain_ms:.4f} ms")
+    return rec
+
+
+def load_tests_module(*parts: str):
+    """tests/<parts>.py, loaded by path without importing the tests package."""
+    spec = importlib.util.spec_from_file_location(
+        "rtvqa_" + "_".join(parts), os.path.join(ROOT, "tests", *parts[:-1], f"{parts[-1]}.py")
+    )
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def load_oracle(name: str):
-    """tests/oracles/<name>.py, loaded by path without importing the tests package."""
-    spec = importlib.util.spec_from_file_location(
-        f"rtvqa_{name}_oracle", os.path.join(ROOT, "tests", "oracles", f"{name}.py")
-    )
-    oracle = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(oracle)
-    return oracle
+    """tests/oracles/<name>.py."""
+    return load_tests_module("oracles", name)
 
 
 def phase_oracle(dev) -> None:
@@ -531,14 +547,15 @@ def kernel_time(rec: dict, dev_ms) -> str:
             f"bound {rec['bound_ms']:.4f} by events{share})")
 
 
-def content_frames(kind: str, n: int, h: int, w: int, seed: int):
+def content_frames(kind: str, n: int, h: int, w: int, seed: int, bar_rows: int = BAR_ROWS):
     """(ref, dis) YUV420 planes with flat regions, where kernel 3 redoes
     the VIF moments of a tile in the plain version's order. ``flat``: ref
     luma one level per quadrant (FLAT_LEVELS) with one textured square that
     moves a pixel per frame; dis = ref + noise on the left half, = ref on
     the right (``tests/test_torch_cuda.py::_flat_inputs`` at full size).
-    ``letterbox``: the gradient + noise frames with black bars of BAR_ROWS
-    rows at the top and bottom (Y 16, U and V 128), equal in ref and dis."""
+    ``letterbox``: the gradient + noise frames with black bars of
+    ``bar_rows`` luma rows at the top and bottom (Y 16, U and V 128), equal
+    in ref and dis."""
     rng = np.random.default_rng(seed)
     if kind == "flat":
         y = np.empty((n, h, w), np.uint8)
@@ -557,7 +574,7 @@ def content_frames(kind: str, n: int, h: int, w: int, seed: int):
     dis = distort(ref, seed + 1)
     for planes in (ref, dis):
         for a, level in zip(planes, (16, 128, 128)):
-            bar = BAR_ROWS * a.shape[1] // h
+            bar = bar_rows * a.shape[1] // h
             a[:, :bar] = level
             a[:, a.shape[1] - bar:] = level
     return ref, dis
@@ -580,15 +597,16 @@ def flat_tile_share(x, taps) -> float:
     return float(flat.view(b, -(-h // th), th, -(-w // tw), tw).amax(dim=(2, 4)).mean())
 
 
-def vif_tail_flat_share(dec_ref) -> dict:
-    """flat_tile_share of kernel 5 at scales 1-3, on the plain version's
-    scale inputs from the scale-1 ref plane."""
+def vif_flat_share(ref, first: int) -> dict:
+    """flat_tile_share of the VIF stencil (kernel 5, or kernel 4) at scales
+    ``first`` .. 3, on the plain version's scale inputs from the ref plane
+    of scale ``first``."""
     from rtvqa_tpu_torch.kernels.vif import TAPS
     from rtvqa_tpu_torch.vmaf.filters import decimate2, filter1d_sep
 
-    x, shares = dec_ref.float(), {}
-    for scale in (1, 2, 3):
-        if scale > 1:
+    x, shares = ref.float(), {}
+    for scale in range(first, 4):
+        if scale > first:
             x = decimate2(filter1d_sep(x, TAPS[scale]))
         shares[f"scale{scale}"] = round(flat_tile_share(x, TAPS[scale]), 4)
     return shares
@@ -658,7 +676,7 @@ def phase_quality_content(dev, b: int, recs: list[dict]) -> None:
                  "adm_scale0": timed(lambda _: adm_scale_cuda(ry, dy, 0)),
                  "adm_tail": timed(lambda _: adm_tail_cuda(*a))}
         line.append(f"{kind}: times {json.dumps(times)}; tile steps flat: kernel 3 "
-                    f"{flat_tile_share(ry, TAPS17):.1%}, kernel 5 {json.dumps(vif_tail_flat_share(dec[0]))}; "
+                    f"{flat_tile_share(ry, TAPS17):.1%}, kernel 5 {json.dumps(vif_flat_share(dec[0], 1))}; "
                     f"vif_scale0 rel {rel:.3g}, kernel 3 max abs errs {json.dumps(errs)}; kernels 5-7 max rel "
                     f"{json.dumps(rels)}")
         del planes, args, got, dec, a
@@ -666,6 +684,49 @@ def phase_quality_content(dev, b: int, recs: list[dict]) -> None:
     gradient = {r["name"]: round(r["ms"], 4) for r in recs}
     print(f"quality content: {(b, H, W)}, kernels 3, 5, 6, 7 against plain within the tolerances; gradient + "
           f"noise {json.dumps(gradient)}; " + "; ".join(line))
+    phase_vif_scale_content(dev)
+
+
+def phase_vif_scale_content(dev) -> None:
+    """Kernel 4 on a DCI-4K chunk (WIDE_N / 2 frames) of flat quadrants and
+    of letterboxed 2.39:1 scope content (DCI_BAR_ROWS-row bars): the four
+    scales chained on the kernel's own planes, each held against its plain
+    version on the same inputs, timed (scale 0, then scales 1-3), with the
+    share of its tile steps that redo their VIF moments at each scale."""
+    from rtvqa_tpu_torch.kernels.vif import vif_scale_cuda, vif_scale_plain
+    from rtvqa_tpu_torch.probes import device_ms, fmt_ms, time_ms
+
+    def timed(fn):
+        return f"{time_ms(fn, [None], 10, dev):.4f} ms (device {fmt_ms(device_ms(fn, [None], 10, dev))})"
+
+    line = []
+    for k, kind in enumerate(("flat", "letterbox")):
+        ref, dis = content_frames(kind, WIDE_N // 2, WIDE_H, WIDE_W, SEED + 30 + k, DCI_BAR_ROWS)
+        ry, dy = (torch.from_numpy(a[0]).to(dev) for a in (ref, dis))
+        del ref, dis
+        r, d, rels = ry, dy, {}
+        for scale in range(4):
+            got, want = vif_scale_cuda(r, d, scale), vif_scale_plain(r, d, scale)
+            torch.cuda.synchronize()
+            check_close(f"vif_scale {kind} scale {scale}", got[0], want[0],
+                        rtol=VIF0_RTOL if scale == 0 else VIF_TAIL_RTOL)
+            if scale < 3:
+                for i in (1, 2):
+                    check_close(f"vif_scale {kind} scale {scale} planes", got[i], want[i], rtol=PLANE_RTOL,
+                                atol=PLANE_ATOL)
+            rels[f"scale{scale}"] = float(f"{max_rel(got[0], want[0]):.3g}")
+            if scale == 0:
+                r1, d1 = got[1], got[2]
+            r, d = got[1], got[2]
+        del got, want, r, d
+        times = {"scale0": timed(lambda _: vif_scale_cuda(ry, dy, 0)),
+                 "scales1-3": timed(lambda _: vif_chain(vif_scale_cuda, r1, d1))}
+        line.append(f"{kind}: times {json.dumps(times)}; tile steps flat {json.dumps(vif_flat_share(ry, 0))}; "
+                    f"vif max rel {json.dumps(rels)}")
+        del ry, dy, r1, d1
+        torch.cuda.empty_cache()
+    print(f"vif_scale content: {(WIDE_N // 2, WIDE_H, WIDE_W)}, kernel 4 against plain within the "
+          "tolerances; " + "; ".join(line))
 
 
 def phase_quality_oracle(dev) -> None:
@@ -773,18 +834,23 @@ def check_launches(label, launches: dict, at_least: dict, exactly: dict | None =
                                  f"not {count}")
 
 
+BY_KIND = ("launches_by_type", "launches_by_scale")
+
+
 def counted_run(kernels, fn):
     """Set every kernel's count to 0, run ``fn`` (timed), read the counts; a
-    wrapper that also counts its launches by input type adds one entry
-    ``name[type]`` per type."""
+    wrapper that also counts its launches by input type or by scale adds
+    one entry ``name[kind]`` per kind."""
     for k in kernels:
         k.launches = 0
-        if hasattr(k, "launches_by_type"):
-            k.launches_by_type = dict.fromkeys(k.launches_by_type, 0)
+        for attr in BY_KIND:
+            if hasattr(k, attr):
+                setattr(k, attr, dict.fromkeys(getattr(k, attr), 0))
     out, t = wall_s(fn)
     counts = {k.__name__: k.launches for k in kernels}
     for k in kernels:
-        counts.update({f"{k.__name__}[{kind}]": n for kind, n in getattr(k, "launches_by_type", {}).items()})
+        for attr in BY_KIND:
+            counts.update({f"{k.__name__}[{kind}]": n for kind, n in getattr(k, attr, {}).items()})
     return out, t, counts
 
 
@@ -870,19 +936,41 @@ def phase_combined(dev, ref_np, dis_np, s_alone) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_vif_scale(dev, ref_np, dis_np, ref_1080, dis_1080) -> dict:
+def chain_work(b, h, w) -> tuple[int, int]:
+    """Kernel 4's work at scales 1-3 below a (b, h, w) scale-0 pair: each
+    scale's f32 pair in and (below scale 3) the next one out."""
+    from rtvqa_tpu_torch.obs.roofline import vif_scale_work
+
+    total = [0, 0]
+    for scale in (1, 2, 3):
+        h, w = (h + 1) // 2, (w + 1) // 2
+        for i, n in enumerate(vif_scale_work(b, h, w, 4, scale)):
+            total[i] += n
+    return total[0], total[1]
+
+
+def vif_chain(scale_fn, r, d) -> None:
+    """Scales 1-3 of ``scale_fn`` (kernel 4 or its plain version) from the
+    scale-1 pair (r, d)."""
+    for scale in (1, 2, 3):
+        _, r, d = scale_fn(r, d, scale)
+
+
+def phase_vif_scale(dev, ref_np, dis_np, ref_1080, dis_1080) -> list[dict]:
     """Kernel 4 at DCI 4K against its plain version, scale by scale, and the
-    four-scale chain against the fused kernel's VIF at 1080p."""
+    four-scale chain against the fused kernel's VIF at 1080p. Returns the
+    records of scale 0 and of the chain of scales 1-3."""
     from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
     from rtvqa_tpu_torch.kernels.vif import (
         vif_features_cuda,
         vif_features_plain,
         vif_scale_cuda,
+        vif_scale_occupancy,
         vif_scale_plain,
         vif_tail_cuda,
     )
     from rtvqa_tpu_torch.obs.roofline import vif_scale_work
-    from rtvqa_tpu_torch.probes import time_ms
+    from rtvqa_tpu_torch.probes import device_ms, fmt_ms, time_ms
 
     ry, dy = (torch.from_numpy(a).to(dev) for a in (ref_np[0], dis_np[0]))
     b, h, w = ry.shape
@@ -893,9 +981,10 @@ def phase_vif_scale(dev, ref_np, dis_np, ref_1080, dis_1080) -> dict:
         check_close(f"vif_scale 0 {key}", got[i], want[i], rtol=PLANE_RTOL, atol=PLANE_ATOL)
     errs = {"scale0": max_abs(got[0], want[0]), "dec": max(max_abs(got[i], want[i]) for i in (1, 2))}
     rels = {"scale0": max_rel(got[0], want[0])}
+    check_repeat("vif_scale 0", got, vif_scale_cuda(ry, dy, 0))
     del want
     # Scales 1-3 chained on the kernel's own outputs.
-    r, d = got[1], got[2]
+    r1, d1 = r, d = got[1], got[2]
     for scale in (1, 2, 3):
         k, p = vif_scale_cuda(r, d, scale), vif_scale_plain(r, d, scale)
         torch.cuda.synchronize()
@@ -903,23 +992,35 @@ def phase_vif_scale(dev, ref_np, dis_np, ref_1080, dis_1080) -> dict:
         if scale < 3:
             for i in (1, 2):
                 check_close(f"vif_scale {scale} planes", k[i], p[i], rtol=PLANE_RTOL, atol=PLANE_ATOL)
+        check_repeat(f"vif_scale {scale}", k[:1 if scale == 3 else 3], vif_scale_cuda(r, d, scale))
         errs[f"scale{scale}"] = max_abs(k[0], p[0])
         rels[f"scale{scale}"] = max_rel(k[0], p[0])
         r, d = k[1], k[2]
     del got, r, d, k, p
     ms = time_ms(lambda _: vif_scale_cuda(ry, dy, 0), [None], 10, dev)
+    dev_ms = device_ms(lambda _: vif_scale_cuda(ry, dy, 0), [None], 10, dev)
     plain_ms = time_ms(lambda _: vif_scale_plain(ry, dy, 0), [None], 2, dev)
+    chain_ms = time_ms(lambda _: vif_chain(vif_scale_cuda, r1, d1), [None], 10, dev)
+    chain_dev_ms = device_ms(lambda _: vif_chain(vif_scale_cuda, r1, d1), [None], 10, dev)
+    chain_plain_ms = time_ms(lambda _: vif_chain(vif_scale_plain, r1, d1), [None], 2, dev)
     ms4 = time_ms(lambda _: vif_features_cuda(ry, dy), [None], 10, dev)
+    dev4_ms = device_ms(lambda _: vif_features_cuda(ry, dy), [None], 10, dev)
     plain4_ms = time_ms(lambda _: vif_features_plain(ry, dy), [None], 2, dev)
     mem = (peak_gib(lambda: vif_scale_cuda(ry, dy, 0)), peak_gib(lambda: vif_scale_plain(ry, dy, 0)))
-    work = vif_scale_work(b, h, w)
-    rec = record("vif_scale", "rtvqa_tpu_torch/csrc/vif.cu", "rtvqa_tpu/kernels/vif_pallas.py:583",
-                 max(errs.values()), ms, plain_ms, work)
+    rec0 = record("vif_scale[scale0]", "rtvqa_tpu_torch/csrc/vif.cu", "rtvqa_tpu/kernels/vif_pallas.py:583",
+                  max(errs["scale0"], errs["dec"]), ms, plain_ms, vif_scale_work(b, h, w, 1, 0))
+    rec_chain = record("vif_scale[scales1-3]", "rtvqa_tpu_torch/csrc/vif.cu",
+                       "rtvqa_tpu/kernels/vif_pallas.py:583", max(errs[f"scale{k}"] for k in (1, 2, 3)),
+                       chain_ms, chain_plain_ms, chain_work(b, h, w))
+    occupancy = {"u8 scale 0": vif_scale_occupancy(dev, torch.uint8, 0),
+                 **{f"f32 scale {k}": vif_scale_occupancy(dev, torch.float32, k) for k in (1, 2, 3)}}
     print(f"vif_scale: {(b, h, w)} u8 pair, scale 0 then 1-3 chained: max abs errs {json.dumps(errs)}, "
-          f"rel {json.dumps(rels)}; scale 0 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (bound "
-          f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}); four scales kernel {ms4:.4f} ms, plain "
-          f"{plain4_ms:.4f} ms; peak scale 0 {mem[0]:.2f} vs {mem[1]:.2f} GiB")
-    del ry, dy
+          f"rel {json.dumps(rels)}; repeat bit-equal; scale 0 {kernel_time(rec0, dev_ms)}, plain "
+          f"{plain_ms:.4f} ms; scales 1-3 {kernel_time(rec_chain, chain_dev_ms)}, plain "
+          f"{chain_plain_ms:.4f} ms; four scales kernel {ms4:.4f} ms (device {fmt_ms(dev4_ms)}), plain "
+          f"{plain4_ms:.4f} ms; peak scale 0 {mem[0]:.2f} vs {mem[1]:.2f} GiB; vif_tail_kernel "
+          f"{json.dumps(occupancy)}")
+    del ry, dy, r1, d1
     torch.cuda.empty_cache()
 
     # At 1080p the chain shares its arithmetic with the fused kernel + tail.
@@ -936,7 +1037,7 @@ def phase_vif_scale(dev, ref_np, dis_np, ref_1080, dis_1080) -> dict:
     print(f"vif_scale chain vs fused kernel + tail at {tuple(planes[0].shape)}: max rel {json.dumps(rels)}")
     del planes, fq, fused, chain
     torch.cuda.empty_cache()
-    return rec
+    return [rec0, rec_chain]
 
 
 def phase_wide_quality(dev, ref_np, dis_np) -> dict:
@@ -955,7 +1056,8 @@ def phase_wide_quality(dev, ref_np, dis_np) -> dict:
     n_chunks = WIDE_N // chunk
     check_launches("wide quality", launches,
                    {"vif_scale_cuda": 4 * n_chunks, "adm_scale_cuda": n_chunks, "adm_tail_cuda": n_chunks},
-                   {"quality_fused_cuda": 0, "vif_tail_cuda": 0})
+                   {"quality_fused_cuda": 0, "vif_tail_cuda": 0,
+                    **{f"vif_scale_cuda[scale{k}]": n_chunks for k in range(4)}})
     mem = peak_gib(lambda: run_loop(dev, ref_np, dis_np, chunk, "kernel"))
     print(f"wide_quality: {WIDE_N}x{WIDE_H}x{WIDE_W} in {n_chunks} chunks of {chunk}: kernel path "
           f"{t_k:.4f} s, plain path {t_p:.4f} s; peak {mem:.2f} GiB (kernel path); launches {launches}; "
@@ -1158,13 +1260,14 @@ def main() -> int:
     wide_ref = make_frames(WIDE_N, WIDE_H, WIDE_W, SEED + 7)
     wide_dis = distort(wide_ref, SEED + 8)
     wide_chunk = slice(0, auto_chunk(WIDE_W, WIDE_H))
-    vif_rec = phase_vif_scale(dev, [a[wide_chunk] for a in wide_ref], [a[wide_chunk] for a in wide_dis],
-                              [a[first] for a in ref_np], [a[first] for a in dis_np])
+    vif_recs = phase_vif_scale(dev, [a[wide_chunk] for a in wide_ref], [a[wide_chunk] for a in wide_dis],
+                               [a[first] for a in ref_np], [a[first] for a in dis_np])
     del y_np, u_np, v_np, ref_np, dis_np
     launches = phase_wide_quality(dev, wide_ref, wide_dis)
-    vif_rec["launches"] = launches["vif_scale_cuda"]
+    vif_recs[0]["launches"] = launches["vif_scale_cuda[scale0]"]
+    vif_recs[1]["launches"] = sum(launches[f"vif_scale_cuda[scale{k}]"] for k in (1, 2, 3))
     print(smi)
-    print(json.dumps({"kernels": [gray_rec, motion_rec, *quality_recs, vif_rec, *probe_recs]}))
+    print(json.dumps({"kernels": [gray_rec, motion_rec, *quality_recs, *vif_recs, *probe_recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

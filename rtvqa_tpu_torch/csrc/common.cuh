@@ -1,11 +1,12 @@
-// Pieces shared by the quality, VIF and ADM kernels (csrc/quality.cu,
-// csrc/vif.cu, csrc/adm.cu). Everything here has internal linkage, so each
-// translation unit that includes it gets its own copy.
+// Pieces shared by the quality, VIF, ADM and block-match kernels
+// (csrc/quality.cu, csrc/vif.cu, csrc/adm.cu, csrc/motion.cu). Everything
+// here has internal linkage, so each translation unit that includes it gets
+// its own copy.
 //
 // Numerics: mul/add/sub round one f32 operation each (__fmul_rn/__fadd_rn
 // stop FMA contraction), so code written with them rounds as the plain
 // PyTorch version does (one multiply, then one add per tap, in tap order);
-// the VIF moment filters of kernels 3 and 5 use FMA taps instead (tap<>,
+// the VIF moment filters of kernels 3, 4 and 5 use FMA taps instead (tap<>,
 // below) and fall back to the plain order on flat windows. Sums are taken
 // per tile in float64 in a fixed order, written as per-tile partials, and
 // reduced per frame by reduce_rows_kernel or reduce_segments_kernel in a
@@ -40,18 +41,13 @@ inline Taps make_taps(const float* host, int n) {
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// numpy's "reflect" border (mirror without repeating the edge sample), for
-// any offset: the index sequence is periodic with period 2(n-1).
-__device__ __forceinline__ int reflect_idx(int i, int n) {
-  if (n == 1) return 0;
-  const int p = 2 * (n - 1);
-  i %= p;
-  if (i < 0) i += p;
-  return i < n ? i : p - i;
-}
-
 __device__ __forceinline__ int clamp_idx(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+// Exact u8 -> f32 (2^23 + v, minus 2^23) without a conversion instruction.
+__device__ __forceinline__ float u8f(uint8_t v) {
+  return __int_as_float(0x4B000000 | v) - 8388608.0f;
 }
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -134,11 +130,6 @@ reduce_rows_kernel(const double* __restrict__ part, int n_tiles, double* __restr
   if (threadIdx.x == 0) out[blockIdx.x] = s;
 }
 
-template <typename T>
-__device__ __forceinline__ float load_f(const T* p, size_t i) {
-  return static_cast<float>(p[i]);
-}
-
 // Raises kernel K's dynamic shared memory limit to `bytes`, once per device.
 template <auto K>
 cudaError_t smem_opt_in(int bytes) {
@@ -186,8 +177,9 @@ reduce_segments_kernel(const double* __restrict__ part, int b, int n_q, Segments
 // element from global memory. No index pays an integer modulo.
 // ---------------------------------------------------------------------------
 
-// reflect_idx without its modulo: fold at the nearer border until inside
-// (once for an index within n - 1 of the frame, which is the usual case).
+// numpy's "reflect" border (mirror without repeating the edge sample),
+// without an integer modulo: fold at the nearer border until inside (once
+// for an index within n - 1 of the frame, which is the usual case).
 __device__ __forceinline__ int reflect_out(int i, int n) {
   if (n == 1) return 0;
   while (static_cast<unsigned>(i) >= static_cast<unsigned>(n)) i = i < 0 ? -i : 2 * (n - 1) - i;
@@ -363,196 +355,6 @@ __device__ __forceinline__ bool vif_pixel(float mu1, float mu2, float e11, float
   num = lg2<kExact>(add(1.0f, quot<kExact>(mul(mul(g, g), sigma1), add(sv_sq, kSigmaNsq))));
   den = lg2<kExact>(add(1.0f, mul(sigma1, 1.0f / kSigmaNsq)));  // = sigma1 / 2, exactly
   return flat;
-}
-
-// ---------------------------------------------------------------------------
-// VIF statistics at one scale: the five moments (mu1, mu2, E[r^2], E[d^2],
-// E[rd]) through a (2R+1)-tap separable window with reflect borders, then
-// the float_vif clamps and the per-pixel num/den terms, summed per tile.
-// One block computes a kStatsTH x kStatsTW tile of one frame: the raw
-// (TH+2R) x (TW+2R) window of ref and dis goes to shared memory once, the
-// vertical pass writes the five moments for TH rows x (TW+2R) columns, the
-// horizontal pass and the statistics run per output pixel.
-// Partials: q0 = num, q0 + 1 = den.
-// ---------------------------------------------------------------------------
-
-constexpr int kStatsTH = 16;
-constexpr int kStatsTW = 64;
-
-template <typename T, int R>
-__global__ void __launch_bounds__(kThreads)
-vif_stats_kernel(const T* __restrict__ ref, const T* __restrict__ dis, int h, int w,
-                 Taps taps, float egl, int has_egl, double* __restrict__ part,
-                 int n_q, int q0, int n_tiles) {
-  constexpr int K = 2 * R + 1;
-  constexpr int TH = kStatsTH, TW = kStatsTW;
-  constexpr int RH = TH + 2 * R, RW = TW + 2 * R;
-  __shared__ float sr[RH * RW];
-  __shared__ float sd[RH * RW];
-  __shared__ float sv[5 * TH * RW];
-  __shared__ double red[kThreads];
-
-  const int tid = threadIdx.x;
-  const size_t frame = static_cast<size_t>(blockIdx.z) * h * w;
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-
-  for (int i = tid; i < RH * RW; i += kThreads) {
-    const int r = i / RW, c = i % RW;
-    const size_t g = frame + static_cast<size_t>(reflect_idx(y0 + r - R, h)) * w +
-                     reflect_idx(x0 + c - R, w);
-    sr[i] = load_f(ref, g);
-    sd[i] = load_f(dis, g);
-  }
-  __syncthreads();
-
-  // Vertical pass (rows first, as the plain version filters axis -2 first).
-  for (int i = tid; i < TH * RW; i += kThreads) {
-    const int r = i / RW, c = i % RW;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f;
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-      const float x = sr[(r + t) * RW + c], y = sd[(r + t) * RW + c];
-      const float k = taps.t[t];
-      const float p0 = mul(k, x), p1 = mul(k, y), p2 = mul(k, mul(x, x)),
-                  p3 = mul(k, mul(y, y)), p4 = mul(k, mul(x, y));
-      if (t == 0) {
-        a0 = p0; a1 = p1; a2 = p2; a3 = p3; a4 = p4;
-      } else {
-        a0 = add(a0, p0); a1 = add(a1, p1); a2 = add(a2, p2);
-        a3 = add(a3, p3); a4 = add(a4, p4);
-      }
-    }
-    sv[(0 * TH + r) * RW + c] = a0;
-    sv[(1 * TH + r) * RW + c] = a1;
-    sv[(2 * TH + r) * RW + c] = a2;
-    sv[(3 * TH + r) * RW + c] = a3;
-    sv[(4 * TH + r) * RW + c] = a4;
-  }
-  __syncthreads();
-
-  double num_acc = 0.0, den_acc = 0.0;
-  for (int i = tid; i < TH * TW; i += kThreads) {
-    const int r = i / TW, c = i % TW;
-    if (y0 + r >= h || x0 + c >= w) continue;
-    float m[5];
-#pragma unroll
-    for (int q = 0; q < 5; ++q) {
-      const float* row = sv + (q * TH + r) * RW + c;
-      float acc = mul(taps.t[0], row[0]);
-#pragma unroll
-      for (int t = 1; t < K; ++t) acc = add(acc, mul(taps.t[t], row[t]));
-      m[q] = acc;
-    }
-    const float mu1 = m[0], mu2 = m[1];
-    float sigma1 = sub(m[2], mul(mu1, mu1));
-    float sigma2 = sub(m[3], mul(mu2, mu2));
-    const float sigma12 = sub(m[4], mul(mu1, mu2));
-    sigma1 = fmaxf(sigma1, 0.0f);
-    sigma2 = fmaxf(sigma2, 0.0f);
-    float g = __fdiv_rn(sigma12, add(sigma1, kVifEps));
-    float sv_sq = sub(sigma2, mul(g, sigma12));
-    if (sigma1 < kVifEps) {
-      g = 0.0f;
-      sv_sq = sigma2;
-      sigma1 = 0.0f;
-    }
-    if (sigma2 < kVifEps) {
-      g = 0.0f;
-      sv_sq = 0.0f;
-    }
-    if (g < 0.0f) {
-      sv_sq = sigma2;
-      g = 0.0f;
-    }
-    sv_sq = fmaxf(sv_sq, kVifEps);
-    if (has_egl) g = fminf(g, egl);
-    const float num = log2f(add(1.0f, __fdiv_rn(mul(mul(g, g), sigma1), add(sv_sq, kSigmaNsq))));
-    const float den = log2f(add(1.0f, __fdiv_rn(sigma1, kSigmaNsq)));
-    num_acc += num;
-    den_acc += den;
-  }
-  const double num_sum = block_sum(num_acc, red);
-  const double den_sum = block_sum(den_acc, red);
-  put_partial(part, n_q, q0, n_tiles, num_sum);
-  put_partial(part, n_q, q0 + 1, n_tiles, den_sum);
-}
-
-inline dim3 stats_grid(int b, int h, int w) {
-  return dim3(cdiv(w, kStatsTW), cdiv(h, kStatsTH), b);
-}
-
-inline int stats_tiles(int h, int w) { return cdiv(w, kStatsTW) * cdiv(h, kStatsTH); }
-
-// ---------------------------------------------------------------------------
-// (2R+1)-tap separable filter (reflect borders) of ref and dis, keeping the
-// even rows and columns: out is (ceil(h/2), ceil(w/2)) — decimate2 of
-// filter1d_sep. One block computes a kDecTH x kDecTW tile of outputs; the
-// vertical pass runs only on the even rows, the horizontal only at the even
-// columns.
-// ---------------------------------------------------------------------------
-
-constexpr int kDecTH = 8;
-constexpr int kDecTW = 32;
-
-template <typename T, int R>
-__global__ void __launch_bounds__(kThreads)
-filter_decimate_kernel(const T* __restrict__ ref, const T* __restrict__ dis, int h, int w,
-                       Taps taps, float* __restrict__ out_ref, float* __restrict__ out_dis) {
-  constexpr int K = 2 * R + 1;
-  constexpr int TH = kDecTH, TW = kDecTW;
-  constexpr int RH = 2 * TH - 1 + 2 * R, RW = 2 * TW - 1 + 2 * R;
-  __shared__ float sr[RH * RW];
-  __shared__ float sd[RH * RW];
-  __shared__ float vr[TH * RW];
-  __shared__ float vd[TH * RW];
-
-  const int tid = threadIdx.x;
-  const int h2 = (h + 1) / 2, w2 = (w + 1) / 2;
-  const size_t frame = static_cast<size_t>(blockIdx.z) * h * w;
-  const int i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
-  const int ys = 2 * i0 - R, xs = 2 * j0 - R;
-
-  for (int i = tid; i < RH * RW; i += kThreads) {
-    const int r = i / RW, c = i % RW;
-    const size_t g = frame + static_cast<size_t>(reflect_idx(ys + r, h)) * w + reflect_idx(xs + c, w);
-    sr[i] = load_f(ref, g);
-    sd[i] = load_f(dis, g);
-  }
-  __syncthreads();
-
-  for (int i = tid; i < TH * RW; i += kThreads) {
-    const int r = i / RW, c = i % RW;
-    float ar = 0.f, ad = 0.f;
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-      const float pr = mul(taps.t[t], sr[(2 * r + t) * RW + c]);
-      const float pd = mul(taps.t[t], sd[(2 * r + t) * RW + c]);
-      ar = t == 0 ? pr : add(ar, pr);
-      ad = t == 0 ? pd : add(ad, pd);
-    }
-    vr[i] = ar;
-    vd[i] = ad;
-  }
-  __syncthreads();
-
-  const int r = tid / TW, c = tid % TW;
-  const int oi = i0 + r, oj = j0 + c;
-  if (oi >= h2 || oj >= w2) return;
-  float ar = 0.f, ad = 0.f;
-#pragma unroll
-  for (int t = 0; t < K; ++t) {
-    const float pr = mul(taps.t[t], vr[r * RW + 2 * c + t]);
-    const float pd = mul(taps.t[t], vd[r * RW + 2 * c + t]);
-    ar = t == 0 ? pr : add(ar, pr);
-    ad = t == 0 ? pd : add(ad, pd);
-  }
-  const size_t o = static_cast<size_t>(blockIdx.z) * h2 * w2 + static_cast<size_t>(oi) * w2 + oj;
-  out_ref[o] = ar;
-  out_dis[o] = ad;
-}
-
-inline dim3 dec_grid(int b, int h, int w) {
-  return dim3(cdiv((w + 1) / 2, kDecTW), cdiv((h + 1) / 2, kDecTH), b);
 }
 
 }  // namespace

@@ -207,11 +207,6 @@ struct LumaSmem {
   double sums[5][kThreads];          // per thread: sse, ssim, sad, vif num, vif den
 };
 
-// Exact u8 -> f32 (2^23 + v, minus 2^23) without a conversion instruction.
-__device__ __forceinline__ float u8f(uint8_t v) {
-  return __int_as_float(0x4B000000 | v) - 8388608.0f;
-}
-
 // The vertical pass on this thread's column (image column x0 - 8 +
 // threadIdx.x), one walk down its staged rows: the five 17-tap VIF moments
 // of all kLumaTH rows into mom; with kRest also the FILTER_5 blur of ref,

@@ -145,6 +145,8 @@ def load_library() -> ctypes.CDLL:
         lib.rtvqa_vif_scale_scratch.restype = i64
         lib.rtvqa_vif_scale.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 2 + [f32, i32] + [ptr] * 5
         lib.rtvqa_vif_scale.restype = i32
+        lib.rtvqa_vif_scale_occupancy.argtypes = [i32, i32, ptr]
+        lib.rtvqa_vif_scale_occupancy.restype = i32
         lib.rtvqa_adm_scratch.argtypes = [i32] * 3
         lib.rtvqa_adm_scratch.restype = i64
         lib.rtvqa_adm_scale.argtypes = (

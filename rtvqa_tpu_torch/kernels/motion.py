@@ -31,14 +31,24 @@ def block_match_motion_cuda(
         )
     if block < 1 or radius < 0:
         raise ValueError(f"need block >= 1 and radius >= 0, got {block}, {radius}")
+    _, out = _launch(prev_gray, curr_gray, block, radius)
+    if out.numel():
+        block_match_motion_cuda.launches += 1
+    return out
+
+
+def _launch(prev_gray, curr_gray, block: int, radius: int):
+    """One ``rtvqa_block_match_motion`` call on checked CUDA inputs: (the
+    (B, H/block, W/block) int32 best-index field the search writes, the (B,)
+    f32 means)."""
     b, h, w = curr_gray.shape
     nby, nbx = h // block, w // block
     if nby == 0 or nbx == 0:
         raise ValueError(f"frame {h}x{w} holds no whole {block}x{block} block")
     out = torch.empty((b,), dtype=torch.float32, device=curr_gray.device)
-    if b == 0:
-        return out
     best = torch.empty((b, nby, nbx), dtype=torch.int32, device=curr_gray.device)
+    if b == 0:
+        return best, out
     lib = load_library()
     with torch.cuda.device(curr_gray.device):
         stream = torch.cuda.current_stream(curr_gray.device).cuda_stream
@@ -47,8 +57,7 @@ def block_match_motion_cuda(
             b, h, w, block, radius, stream,
         )
     check_launch(lib, code, "block_match_motion")
-    block_match_motion_cuda.launches += 1
-    return out
+    return best, out
 
 
 block_match_motion_cuda.launches = 0

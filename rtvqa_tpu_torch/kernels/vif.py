@@ -16,6 +16,8 @@ tensors they launch the kernel or raise.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -52,6 +54,15 @@ def vif_tail_cuda(dec_ref, dec_dis, egl=None) -> dict:
     b, h1, w1 = dec_ref.shape
     if h1 < 5 or w1 < 5:
         raise ValueError(f"scale-1 frames need H, W >= 5 for the 9-tap window, got {h1}x{w1}")
+    s = _tail_sums(dec_ref, dec_dis, egl).float()
+    vif_tail_cuda.launches += 1
+    return {f"vif_scale{k}": vif_ratio(s[:, 2 * k - 2], s[:, 2 * k - 1]) for k in (1, 2, 3)}
+
+
+def _tail_sums(dec_ref, dec_dis, egl):
+    """One ``rtvqa_vif_tail`` call on checked CUDA inputs: the (B, 6) f64
+    sums [num1, den1, num2, den2, num3, den3]."""
+    b, h1, w1 = dec_ref.shape
     dev = dec_ref.device
     lib = load_library()
     img = torch.empty((max(lib.rtvqa_vif_tail_scratch_floats(b, h1, w1), 1),),
@@ -68,9 +79,7 @@ def vif_tail_cuda(dec_ref, dec_dis, egl=None) -> dict:
             img.data_ptr(), part.data_ptr(), sums.data_ptr(), stream,
         )
     check_launch(lib, code, "vif_tail")
-    vif_tail_cuda.launches += 1
-    s = sums.float()
-    return {f"vif_scale{k}": vif_ratio(s[:, 2 * k - 2], s[:, 2 * k - 1]) for k in (1, 2, 3)}
+    return sums
 
 
 vif_tail_cuda.launches = 0
@@ -125,11 +134,25 @@ def vif_scale_cuda(ref, dis, scale: int, egl=None):
         )
     check_launch(lib, code, f"vif_scale (scale {scale})")
     vif_scale_cuda.launches += 1
+    vif_scale_cuda.launches_by_scale[f"scale{scale}"] += 1
     s = sums.float()
     return vif_ratio(s[:, 0], s[:, 1]), dec_ref, dec_dis
 
 
 vif_scale_cuda.launches = 0
+vif_scale_cuda.launches_by_scale = {f"scale{k}": 0 for k in TAPS}  # the same launches, by scale
+
+
+def vif_scale_occupancy(device, dtype: torch.dtype, scale: int) -> dict:
+    """Kernel 4's launch figures at ``scale`` for ``dtype`` (u8 or f32)
+    input on ``device``: blocks per SM (the occupancy API), registers per
+    thread, dynamic shared bytes per block, local (spill) bytes per thread."""
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        check_launch(lib, lib.rtvqa_vif_scale_occupancy(int(dtype == torch.uint8), scale, out),
+                     "vif_scale_occupancy")
+    return dict(zip(("blocks_per_sm", "registers", "shared_bytes", "local_bytes"), out))
 
 
 def _vif_features(scale_fn, ref_y, dis_y, egl) -> dict:

@@ -105,21 +105,32 @@ def quality_work(b, h, w, hc, wc):
     return nbytes, ops
 
 
+def _vif_scale_ops(scale: int, h: int, w: int) -> int:
+    """One frame of VIF at ``scale`` (0-3) on (h, w): the 2^(4-s)+1-tap
+    statistics and, below scale 3, the next scale's 2^(3-s)+1-tap filter of
+    both images at the even rows and columns."""
+    ops = _vif_stats_ops(2 ** (4 - scale) + 1) * h * w
+    if scale < 3:
+        ops += _filter_dec_ops(2 ** (3 - scale) + 1, h, w)
+    return ops
+
+
 def vif_tail_work(b, h1, w1):
     """Kernel 5: the f32 scale-1 pair in, three per-frame values out."""
-    h2, w2 = (h1 + 1) // 2, (w1 + 1) // 2
-    h3, w3 = (h2 + 1) // 2, (w2 + 1) // 2
-    ops = b * (_vif_stats_ops(9) * h1 * w1 + _filter_dec_ops(5, h1, w1)
-               + _vif_stats_ops(5) * h2 * w2 + _filter_dec_ops(3, h2, w2) + _vif_stats_ops(3) * h3 * w3)
-    return 2 * 4 * b * h1 * w1 + 3 * 4 * b, ops
+    ops, h, w = 0, h1, w1
+    for scale in (1, 2, 3):
+        ops += _vif_scale_ops(scale, h, w)
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return 2 * 4 * b * h1 * w1 + 3 * 4 * b, b * ops
 
 
-def vif_scale_work(b, h, w, in_bytes=1):
-    """Kernel 4 at scale 0 (17-tap statistics, 9-tap decimation of both
-    frames): the pair in, the vif values and the decimated pair out."""
+def vif_scale_work(b, h, w, in_bytes=1, scale=0):
+    """Kernel 4 at ``scale`` on a (b, h, w) pair of ``in_bytes``-byte
+    elements (u8 at scale 0, f32 after): the pair in, one vif value per
+    frame out and, below scale 3, the f32 decimated pair out."""
     h2, w2 = (h + 1) // 2, (w + 1) // 2
-    nbytes = 2 * in_bytes * b * h * w + 2 * 4 * b * h2 * w2 + 4 * b
-    return nbytes, b * (_vif_stats_ops(17) * h * w + _filter_dec_ops(9, h, w))
+    planes = 2 * 4 * b * h2 * w2 if scale < 3 else 0
+    return 2 * in_bytes * b * h * w + planes + 4 * b, b * _vif_scale_ops(scale, h, w)
 
 
 def adm_scale0_work(b, h, w):

@@ -9,7 +9,9 @@ nvcc, and without jax, run them alone with:
 Tolerances: gray atol 1e-3 (FMA ULPs; the kernel rounds like the plain
 ops, so it is exact in practice); motion rel 5e-3 on smooth frames
 (docs/PARITY.md: near-tie argmins), exact on integer-valued frames and 0 on
-a static scene. Quality kernels, those of the JAX package's own kernel
+a static scene, and its index fields on smoothed non-integer frames equal
+to an earlier kernel's (MOTION_INDEX_DIGEST; kernels 5 and 6 are held to
+digests of their own as well). Quality kernels, those of the JAX package's own kernel
 tests: SSEs equal (integer sums); SSIM means abs 2e-6; VIF scale 0 rel
 2e-4; SAD rel 1e-5 / abs 1e-5; blur carry abs 1e-4; decimated planes rel
 1e-4 / abs 1e-3; VIF scales 1-3 rel 3e-4 (kernel 4, VIF at one scale:
@@ -81,6 +83,54 @@ def test_motion_kernel_matches_plain(dev, shape, block, radius):
     got = block_match_motion_cuda(smooth[:-1], smooth[1:], block, radius)
     want = block_match_motion(smooth[:-1], smooth[1:], block, radius)
     torch.testing.assert_close(got, want, rtol=5e-3, atol=0)
+
+
+# Seeded, smoothed, non-integer pairs of kernel 2's search, (seed, (h, w),
+# block, radius): the pyramid's search at 1080p, the full search at 1080p,
+# a frame with ragged block rows and columns, and the general path.
+MOTION_DIGEST_CASES = [(50, (540, 960), 8, 4), (51, (1080, 1920), 16, 8), (52, (75, 101), 8, 4),
+                       (53, (48, 40), 16, 1)]
+# sha256 of the int32 best-index fields that rtvqa_block_match_motion wrote
+# on MOTION_DIGEST_CASES before the search held its candidates in registers:
+# commit e0d36da's sources, through motion_index_digest, printed it on an
+# H100.
+MOTION_INDEX_DIGEST = "67a69496bccc851a458a31adcdbfe4bccb59a6ce7f3d2717d61ded3b3435c0cc"
+
+
+def motion_digest_frames(seed, shape):
+    """(prev, curr), each (2, H, W) f32: integer texture under a 3x3 box
+    mean (edges replicated) divided by 3, so no value is an integer; curr is
+    prev moved by (2, -3) plus a tenth of another such texture."""
+    rng = np.random.default_rng(seed)
+    tex = rng.integers(0, 256, (3, *shape)).astype(np.float64)
+    pad = np.pad(tex, ((0, 0), (1, 1), (1, 1)), mode="edge")
+    smooth = sum(pad[:, i:i + shape[0], j:j + shape[1]] for i in range(3) for j in range(3)) / 27.0
+    prev = smooth[:2]
+    curr = np.roll(prev, (2, -3), (1, 2)) + 0.1 * smooth[2]
+    return prev.astype(np.float32), curr.astype(np.float32)
+
+
+def motion_index_digest(launch, dev) -> str:
+    """sha256 over the index fields ``launch(prev, curr, block, radius)``
+    returns (int32, (2, H/block, W/block)) on every case of
+    MOTION_DIGEST_CASES."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for seed, shape, block, radius in MOTION_DIGEST_CASES:
+        prev, curr = (torch.from_numpy(a).to(dev) for a in motion_digest_frames(seed, shape))
+        best = launch(prev, curr, block, radius)
+        assert best.dtype == torch.int32 and best.shape == (2, shape[0] // block, shape[1] // block)
+        digest.update(best.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def test_motion_index_field_unchanged(dev):
+    """Kernel 2 picks the same candidate for every block as before its
+    candidates moved into registers, on frames whose SADs are not integers."""
+    from rtvqa_tpu_torch.kernels.motion import _launch
+
+    assert motion_index_digest(lambda *a: _launch(*a)[0], dev) == MOTION_INDEX_DIGEST
 
 
 def test_suite_kernel_path_matches_plain(dev):
@@ -324,7 +374,13 @@ def test_quality_chunk_kernel_body_matches_plain(dev):
     torch.testing.assert_close(blur_k, blur_p, rtol=0, atol=1e-4)
 
 
-VIF_SCALE_SHAPES = [(3, 48, 64), (2, 53, 71), (2, 2160, 4096)]
+# Kernel 4: small and odd frames; the smallest frame each scale takes (H, W
+# >= 2^(3-s)+1: 9x9 at scale 0, 5x5, 3x3, 2x2 after), which the scales
+# above it refuse; DCI 4K, an unaligned DCI width (u8 and f32 rows that are
+# not whole 16-byte pieces: the gathered stage) and the narrowest frame of
+# the wide route.
+VIF_SCALE_SHAPES = [(3, 48, 64), (2, 53, 71), (2, 9, 9), (2, 5, 5), (2, 3, 3), (2, 2, 2), (2, 2160, 4096),
+                    (2, 2160, 4095), (2, 2160, 3841)]
 
 
 @pytest.mark.parametrize("b,h,w", VIF_SCALE_SHAPES)
@@ -332,10 +388,14 @@ VIF_SCALE_SHAPES = [(3, 48, 64), (2, 53, 71), (2, 2160, 4096)]
 @pytest.mark.parametrize("egl", [None, 1.0])
 def test_vif_scale_kernel_matches_plain(dev, b, h, w, scale, egl):
     """Kernel 4 per scale, on the u8 pair and on its f32 copy; repeat runs
-    are bit-identical."""
+    are bit-identical. A frame smaller than the scale's window is refused."""
     from rtvqa_tpu_torch.kernels.vif import vif_scale_cuda, vif_scale_plain
 
     x = _quality_inputs(np.random.default_rng(10 + scale), b, h, w, dev)
+    if min(h, w) < 2 ** (3 - scale) + 1:
+        with pytest.raises(ValueError, match=f"scale {scale} needs"):
+            vif_scale_cuda(x[0], x[3], scale, egl)
+        return
     for ref, dis in ((x[0], x[3]), (x[0].float(), x[3].float())):
         before = vif_scale_cuda.launches
         got = vif_scale_cuda(ref, dis, scale, egl)
@@ -352,6 +412,32 @@ def test_vif_scale_kernel_matches_plain(dev, b, h, w, scale, egl):
             assert g.shape == (b, (h + 1) // 2, (w + 1) // 2)
             torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-3)
             assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("content", ["quadrants", "letterbox"])
+def test_vif_scale_kernel_flat_content(dev, content):
+    """Kernel 4 at DCI 4K on flat quadrants and on letterboxed 2.39:1 scope
+    content (4096 x 1716 in a 4096 x 2160 frame: 222-row bars), whose flat
+    ref windows send its tiles to the plain-order moments at every scale:
+    the four scales chained on the kernel's own planes, each against the
+    plain version on the same inputs."""
+    from rtvqa_tpu_torch.kernels.vif import vif_scale_cuda, vif_scale_plain
+
+    rng = np.random.default_rng(17)
+    b, h, w = 2, 2160, 4096
+    if content == "letterbox":
+        ref, dis = _letterbox_inputs(rng, b, h, w, dev, bar=222)
+    else:
+        x = _flat_inputs(rng, b, h, w, (255, 128, 16, 235), dev)
+        ref, dis = x[0], x[3]
+    for scale in range(4):
+        got, want = vif_scale_cuda(ref, dis, scale), vif_scale_plain(ref, dis, scale)
+        torch.cuda.synchronize()
+        assert _rel(got[0], want[0]) < (2e-4 if scale == 0 else 3e-4), scale
+        if scale < 3:
+            for g, p in zip(got[1:], want[1:]):
+                torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-3)
+        ref, dis = got[1], got[2]
 
 
 def test_vif_features_kernel_identity(dev):
@@ -435,6 +521,53 @@ def adm_kernel_digest(dev) -> str:
     return digest.hexdigest()
 
 
+# Kernel 5's inputs, (seed, (b, h1, w1), bar rows, egl): a 1080p chunk's
+# scale-1 size, an odd small frame with a gain limit, and a frame whose flat
+# bars send tiles to the plain-order retry.
+VIF_TAIL_DIGEST_CASES = [(60, (2, 540, 960), 0, None), (61, (2, 25, 36), 0, 1.0), (62, (2, 135, 240), 17, None)]
+# sha256 of the (b, 6) f64 sums of vif.py::_tail_sums on VIF_TAIL_DIGEST_CASES,
+# as kernel 5 gave them before kernel 4 came to share its stencil: commit
+# e0d36da's sources, through vif_tail_kernel_digest, printed it on an H100.
+VIF_TAIL_DIGEST = "359c86e9e9f26cc0de75254963b04d4b69d032a44a0db3d43094fb07e81ffcb5"
+
+
+def vif_tail_digest_inputs(seed, shape, bar):
+    """(ref, dis) f32, built in numpy: a gradient plus noise in thirds, dis
+    = ref + other noise in thirds, with ``bar`` rows of 16.0 at the top and
+    bottom of both."""
+    rng = np.random.default_rng(seed)
+    b, h, w = shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    ref = (xx * 0.75 + yy * 0.5)[None] % 224 + rng.integers(0, 32, shape) / 3.0
+    dis = ref + rng.integers(-4, 5, shape) / 3.0
+    for a in (ref, dis):
+        a[:, :bar] = 16.0
+        a[:, h - bar:] = 16.0
+    return ref.astype(np.float32), dis.astype(np.float32)
+
+
+def vif_tail_kernel_digest(launch, dev) -> str:
+    """sha256 over ``launch(ref, dis, egl)``'s (b, 6) f64 sums on every case
+    of VIF_TAIL_DIGEST_CASES."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for seed, shape, bar, egl in VIF_TAIL_DIGEST_CASES:
+        ref, dis = (torch.from_numpy(a).to(dev) for a in vif_tail_digest_inputs(seed, shape, bar))
+        sums = launch(ref, dis, egl)
+        assert sums.dtype == torch.float64 and sums.shape == (shape[0], 6)
+        digest.update(sums.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def test_vif_tail_kernel_unchanged(dev):
+    """Kernel 5 gives the same bits as before kernel 4 came to share its
+    stencil."""
+    from rtvqa_tpu_torch.kernels.vif import _tail_sums
+
+    assert vif_tail_kernel_digest(_tail_sums, dev) == VIF_TAIL_DIGEST
+
+
 def test_adm_scale_kernel_unchanged(dev):
     """Kernel 6 gives the same bits as before kernel 6a came to share its
     input path."""
@@ -512,14 +645,15 @@ def _scale1(x):
     return decimate2(filter1d_sep(x.float(), TAPS[1])).contiguous()
 
 
-def _letterbox_inputs(rng, b, h, w, dev):
+def _letterbox_inputs(rng, b, h, w, dev, bar=None):
     """Gradient + noise luma, dis = ref + noise, with black bars (Y 16) of
-    138/1080 of the rows at the top and bottom, equal in ref and dis."""
+    ``bar`` rows (default 138/1080 of them) at the top and bottom, equal in
+    ref and dis."""
     yy, xx = np.mgrid[0:h, 0:w]
     base = ((xx * 3 + yy * 2)[None] + 7 * np.arange(b)[:, None, None]) % 256
     ref = np.clip(base + rng.integers(0, 8, (b, h, w)), 0, 255).astype(np.uint8)
     dis = np.clip(ref.astype(np.int16) + rng.integers(-4, 5, (b, h, w)), 0, 255).astype(np.uint8)
-    bar = max(1, 138 * h // 1080)
+    bar = bar or max(1, 138 * h // 1080)
     for a in (ref, dis):
         a[:, :bar] = 16
         a[:, h - bar:] = 16

@@ -78,6 +78,25 @@ def test_block_match_wrapper_on_cpu_is_plain(rng):
     assert block_match_motion_cuda.launches == before
 
 
+def test_plain_index_field_matches_the_kernel_digest():
+    """On the card tests' smoothed, non-integer pairs the plain version
+    picks, for every block, the candidate the CUDA kernel picks: its index
+    fields hash to MOTION_INDEX_DIGEST, which tests/test_torch_cuda.py holds
+    the kernel to."""
+    import importlib.util
+    from pathlib import Path
+
+    from rtvqa_tpu_torch.ops.motion import block_match_index
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_cuda_tests", Path(__file__).with_name("test_torch_cuda.py"))
+    cuda_tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cuda_tests)
+    digest = cuda_tests.motion_index_digest(
+        lambda p, c, block, radius: block_match_index(p, c, block, radius).to(torch.int32), torch.device("cpu"))
+    assert digest == cuda_tests.MOTION_INDEX_DIGEST
+
+
 def test_wrappers_refuse_non_cuda_devices():
     # A tensor that is neither on the CPU nor on a card takes the kernel
     # route, which checks the device and raises instead of falling back.

@@ -54,12 +54,34 @@ def test_attach_measured_gives_shares(phase, seconds):
     (roofline.strip_floor_work(128, 1088, 2176, 1), 0.0885, "bytes"),
     (roofline.adm_scale0_work(64, 1080, 1920), 0.1585, "bytes"),
     (roofline.quality_work(64, 1080, 1920, 540, 960), 0.8497, "operations"),
+    (roofline.vif_scale_work(14, 2160, 4096), 0.7182, "operations"),
 ])
 def test_kernel_bounds_on_the_h100(work, ms, by):
-    """Kernels 6a, 8 and 9 at the probes' shapes, and two main-path kernels
-    at the bounds PERF.md has carried since they were ported."""
+    """Kernels 6a, 8 and 9 at the probes' shapes, and three main-path
+    kernels (3, 6, and 4 at scale 0 of a DCI-4K chunk) at the bounds PERF.md
+    has carried since they were ported."""
     bound, bound_by = roofline.kernel_bound(*work)
     assert bound == pytest.approx(ms, abs=1e-4) and bound_by == by
+
+
+@pytest.mark.parametrize("scale", [1, 2, 3])
+def test_vif_scale_work_is_kernel_5s_per_scale(scale):
+    """Kernel 4 at scales 1-3 of a 64-frame 1080p chunk (scale 1 is 540 x
+    960) does kernel 5's operations at that scale: the 2^(4-s)+1-tap
+    statistics and, below scale 3, the 2^(3-s)+1-tap decimation; it reads
+    its f32 pair and writes the next scale's (none after scale 3). Summed
+    over the three scales, the operations are kernel 5's."""
+    b, shapes = 64, {1: (540, 960), 2: (270, 480), 3: (135, 240)}
+    h, w = shapes[scale]
+    h2, w2 = (h + 1) // 2, (w + 1) // 2
+    taps, dec = 2 ** (4 - scale) + 1, 2 ** (3 - scale) + 1
+    ops = (3 + 10 * (2 * taps - 1) + 30) * h * w  # five moments, two passes; products, statistics
+    if scale < 3:
+        ops += 2 * (2 * dec - 1) * (h2 * w + h2 * w2)  # both images, even rows, then even columns
+    planes = 2 * 4 * b * h2 * w2 if scale < 3 else 0
+    assert roofline.vif_scale_work(b, h, w, 4, scale) == (2 * 4 * b * h * w + planes + 4 * b, b * ops)
+    total = sum(roofline.vif_scale_work(b, *shapes[s], 4, s)[1] for s in shapes)
+    assert total == roofline.vif_tail_work(b, 540, 960)[1]
 
 
 def test_probe_windows_overlap_their_functions_bytes():
