@@ -9,7 +9,9 @@ cannot decode there):
 
 * complexity (``quality_backend: "none"``): the gray and block-match
   kernels against their plain versions at the main path's shapes (128
-  frames; 127 half-resolution pyramid pairs), the block-match kernel's
+  frames; 127 half-resolution pyramid pairs; the gray kernel bit for bit,
+  also at 32x2160x3840 and on the general path at 128x480x854, each timed
+  beside ``y.to(torch.float32)`` as a yardstick), the block-match kernel's
   index fields on non-integer frames against ``MOTION_INDEX_DIGEST``
   (``tests/test_torch_cuda.py``), the suite against the
   repository's NumPy oracles on a small input, then
@@ -85,7 +87,8 @@ WIDE_N, WIDE_H, WIDE_W = 28, 2160, 4096   # DCI 4K: two chunks of auto_chunk = 1
 FPS = 30.0
 SEED = 0
 BLOCK, RADIUS = 16, 8          # the suite's defaults; the pyramid halves them
-GRAY_ATOL = 1e-3               # tests/test_pallas_kernels.py:96 (FMA ULPs)
+GRAY_ATOL = 0.0                # kernel 1 rounds every operation as its plain version does
+GRAY_SHAPES = ((32, 2160, 3840), (128, 480, 854))   # UHD (vector path), 480p (general path)
 MOTION_RTOL = 5e-3             # docs/PARITY.md motion row (near-tie argmins)
 SUITE_RTOL = 1e-4
 NOISE = 4                      # dis = ref + uniform integers in [-NOISE, NOISE]
@@ -234,10 +237,14 @@ def phase_build() -> None:
 
 
 def phase_gray(dev, y, u, v) -> dict:
-    from rtvqa_tpu_torch.kernels.gray import yuv420_to_gray_cuda
+    from rtvqa_tpu_torch.kernels.gray import gray_occupancy, gray_path, yuv420_to_gray_cuda
     from rtvqa_tpu_torch.obs.roofline import gray_work
     from rtvqa_tpu_torch.ops.color import yuv420_to_gray
-    from rtvqa_tpu_torch.probes import time_ms
+    from rtvqa_tpu_torch.probes import device_ms, time_ms
+    from rtvqa_tpu_torch.probes.gray_shapes import describe, measure, planes, yardstick
+
+    def path(y, u, v):
+        return gray_path(y.shape[-1], y.data_ptr(), u.data_ptr(), v.data_ptr())
 
     got = yuv420_to_gray_cuda(y, u, v)
     want = yuv420_to_gray(y, u, v)
@@ -246,11 +253,23 @@ def phase_gray(dev, y, u, v) -> dict:
     if not err <= GRAY_ATOL:
         raise AssertionError(f"gray kernel vs plain: max abs err {err} > {GRAY_ATOL}")
     ms = time_ms(lambda _: yuv420_to_gray_cuda(y, u, v), [None], 20, dev)
+    dev_ms = device_ms(lambda _: yuv420_to_gray_cuda(y, u, v), [None], 20, dev)
     plain_ms = time_ms(lambda _: yuv420_to_gray(y, u, v), [None], 5, dev)
-    print(f"gray: {tuple(y.shape)} max_abs_err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return record("yuv420_to_gray", "rtvqa_tpu_torch/csrc/gray.cu",
-                  "rtvqa_tpu/kernels/gray_pallas.py:116", err, ms, plain_ms,
-                  gray_work(*y.shape, *u.shape[-2:]))
+    rec = record("yuv420_to_gray", "rtvqa_tpu_torch/csrc/gray.cu",
+                 "rtvqa_tpu/kernels/gray_pallas.py:116", err, ms, plain_ms,
+                 gray_work(*y.shape, *u.shape[-2:]))
+    print(f"gray: {tuple(y.shape)} ({path(y, u, v)} path) max_abs_err {err:.3g}; "
+          f"{kernel_time(rec, dev_ms)}, plain {plain_ms:.4f} ms; "
+          f"{json.dumps(gray_occupancy(dev))}")
+    print(f"gray: {yardstick(y, 20, dev)}")
+    for b, h, w in GRAY_SHAPES:
+        yuv = planes(b, h, w, dev)
+        m = measure(*yuv, 20, dev)
+        if not m["equal"]:
+            raise AssertionError(f"gray kernel vs plain at {b}x{h}x{w}: not equal")
+        print(f"gray: ({path(*yuv)} path) {describe(m)}")
+        del yuv
+    return rec
 
 
 def phase_motion(dev, gray) -> dict:

@@ -123,8 +123,10 @@ def load_library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.rtvqa_cuda_error_string.argtypes = [i32]
         lib.rtvqa_cuda_error_string.restype = ctypes.c_char_p
-        lib.rtvqa_yuv420_to_gray.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        lib.rtvqa_yuv420_to_gray.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 6 + [ptr]
         lib.rtvqa_yuv420_to_gray.restype = i32
+        lib.rtvqa_gray_occupancy.argtypes = [i32, ptr]
+        lib.rtvqa_gray_occupancy.restype = i32
         lib.rtvqa_block_match_motion.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         lib.rtvqa_block_match_motion.restype = i32
         f32, i64 = ctypes.c_float, ctypes.c_longlong

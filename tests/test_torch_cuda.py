@@ -6,9 +6,9 @@ nvcc, and without jax, run them alone with:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: gray atol 1e-3 (FMA ULPs; the kernel rounds like the plain
-ops, so it is exact in practice); motion rel 5e-3 on smooth frames
-(docs/PARITY.md: near-tie argmins), exact on integer-valued frames and 0 on
+Tolerances: gray exact (``torch.equal``: on both of its paths the kernel
+rounds every operation as the plain ops do); motion rel 5e-3 on smooth
+frames (docs/PARITY.md: near-tie argmins), exact on integer-valued frames and 0 on
 a static scene, and its index fields on smoothed non-integer frames equal
 to an earlier kernel's (MOTION_INDEX_DIGEST; kernels 5 and 6 are held to
 digests of their own as well). Quality kernels, those of the JAX package's own kernel
@@ -46,17 +46,59 @@ def _yuv(rng, n, h, w, dev):
     return tuple(torch.from_numpy(a).to(dev) for a in (y, u, v))
 
 
-@pytest.mark.parametrize("shape", [(64, 96), (67, 131), (1, 1), (1080, 1920)])
-def test_gray_kernel_matches_plain(dev, shape):
-    from rtvqa_tpu_torch.kernels.gray import yuv420_to_gray_cuda
+@pytest.mark.parametrize(
+    "shape,path",
+    [
+        ((64, 96), "vector"),
+        ((67, 131), "general"),
+        ((1, 1), "general"),
+        ((1080, 1920), "vector"),
+        ((1081, 1920), "vector"),    # odd h: a last row pair of one row
+        ((480, 854), "general"),     # w % 4 != 0
+        ((2160, 3840), "vector"),
+        ((2160, 4096), "vector"),
+    ],
+)
+def test_gray_kernel_matches_plain(dev, shape, path):
+    from rtvqa_tpu_torch.kernels.gray import gray_path, yuv420_to_gray_cuda
     from rtvqa_tpu_torch.ops.color import yuv420_to_gray
 
     y, u, v = _yuv(np.random.default_rng(0), 3, *shape, dev)
+    assert gray_path(shape[1], y.data_ptr(), u.data_ptr(), v.data_ptr()) == path
     before = yuv420_to_gray_cuda.launches
     got = yuv420_to_gray_cuda(y, u, v)
     torch.cuda.synchronize()
     assert yuv420_to_gray_cuda.launches == before + 1
-    torch.testing.assert_close(got, yuv420_to_gray(y, u, v), rtol=0, atol=1e-3)
+    assert torch.equal(got, yuv420_to_gray(y, u, v))
+
+
+def test_gray_kernel_misaligned_view_takes_the_general_path(dev):
+    """Planes that are contiguous views from byte 1 of a flat buffer: 1920
+    columns, but not the vector path's 4-byte (luma) and 2-byte (chroma)
+    alignment."""
+    from rtvqa_tpu_torch.kernels.gray import gray_path, yuv420_to_gray_cuda
+    from rtvqa_tpu_torch.ops.color import yuv420_to_gray
+
+    planes = []
+    for a in _yuv(np.random.default_rng(2), 2, 1080, 1920, dev):
+        flat = torch.empty(a.numel() + 1, dtype=torch.uint8, device=dev)
+        view = flat[1:].view(a.shape)
+        view.copy_(a)
+        assert view.is_contiguous() and view.data_ptr() % 2 == 1
+        planes.append(view)
+    y, u, v = planes
+    assert gray_path(1920, y.data_ptr(), u.data_ptr(), v.data_ptr()) == "general"
+    assert torch.equal(yuv420_to_gray_cuda(y, u, v), yuv420_to_gray(y, u, v))
+
+
+@pytest.mark.parametrize("shape", [(70000, 2, 16), (70000, 1, 5)])
+def test_gray_kernel_takes_more_than_65535_frames(dev, shape):
+    """The launch puts no frame or row count on a grid axis."""
+    from rtvqa_tpu_torch.kernels.gray import yuv420_to_gray_cuda
+    from rtvqa_tpu_torch.ops.color import yuv420_to_gray
+
+    y, u, v = _yuv(np.random.default_rng(3), *shape, dev)
+    assert torch.equal(yuv420_to_gray_cuda(y, u, v), yuv420_to_gray(y, u, v))
 
 
 @pytest.mark.parametrize(

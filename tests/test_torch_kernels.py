@@ -16,7 +16,7 @@ import torch
 from rtvqa_tpu.kernels.gray_pallas import yuv420_to_gray_pallas
 from rtvqa_tpu.kernels.motion_pallas import block_match_motion_pallas
 from rtvqa_tpu_torch.kernels import _build
-from rtvqa_tpu_torch.kernels.gray import yuv420_to_gray_cuda
+from rtvqa_tpu_torch.kernels.gray import gray_items, gray_path, yuv420_to_gray_cuda
 from rtvqa_tpu_torch.kernels.motion import block_match_motion_cuda
 from rtvqa_tpu_torch.ops.color import yuv420_to_gray
 from rtvqa_tpu_torch.ops.motion import block_match_motion
@@ -37,13 +37,43 @@ def _shifted_pairs(rng, n, h, w, dy, dx):
     return prev, curr
 
 
-@pytest.mark.parametrize("shape", [(64, 96), (67, 131), (128, 257)])
+@pytest.mark.parametrize("shape", [(64, 96), (67, 131), (128, 257), (35, 854), (33, 1920)])
 def test_gray_plain_matches_pallas(rng, shape):
     # (67, 131): odd H and W — the CUDA kernel takes them without padding.
+    # (35, 854): the kernel's general path (w % 4 != 0) at an odd H;
+    # (33, 1920): its vector path with a last row pair of one row.
     y, u, v = _yuv(rng, 2, *shape)
     want = np.asarray(yuv420_to_gray_pallas(y, u, v, interpret=True))
     got = yuv420_to_gray(*(torch.from_numpy(a) for a in (y, u, v))).numpy()
     np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+@pytest.mark.parametrize(
+    "w,ptrs,path",
+    [
+        (1920, (0, 0, 0), "vector"),
+        (3840, (4096, 1026, 2050), "vector"),   # u, v 2-byte aligned suffice
+        (4, (4, 2, 2), "vector"),
+        (1924, (0, 0, 0), "vector"),            # w % 16 != 0 but w % 4 == 0
+        (854, (0, 0, 0), "general"),            # w % 4 != 0
+        (1922, (0, 0, 0), "general"),
+        (1920, (1, 0, 0), "general"),           # a view at an odd offset
+        (1920, (2, 0, 0), "general"),           # y only 2-byte aligned
+        (1920, (0, 1, 0), "general"),
+        (1920, (0, 0, 3), "general"),
+    ],
+)
+def test_gray_path_rule(w, ptrs, path):
+    assert gray_path(w, *ptrs) == path
+
+
+@pytest.mark.parametrize(
+    "path,shape,items",
+    [("vector", (128, 1080, 1920), 128 * 540 * 480), ("vector", (2, 33, 1920), 2 * 17 * 480),
+     ("general", (128, 480, 854), 128 * 240 * 27), ("general", (70000, 1, 5), 70000)],
+)
+def test_gray_items_per_launch(path, shape, items):
+    assert gray_items(path, *shape) == items
 
 
 def test_gray_wrapper_on_cpu_is_plain(rng):

@@ -142,3 +142,17 @@ def test_probe_entry_point_runs_on_cpu(name, expect):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert expect in proc.stdout
     assert "cpu, host clock" in proc.stdout
+
+
+def test_gray_shapes_probe_runs_on_cpu():
+    """Kernel 1's probe at small shapes, one per path of the kernel: the
+    wrapper on CPU tensors is its plain version, so every shape is equal."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "rtvqa_tpu_torch.probes.gray_shapes", "--device", "cpu",
+         "--shapes", "2x33x64", "2x35x854", "--reps", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.count("equal to plain: True") == 2, proc.stdout
+    assert "on 2x33x64: y.to(torch.float32)" in proc.stdout and "f32 fill_" in proc.stdout
+    assert "cpu, host clock" in proc.stdout
