@@ -49,7 +49,19 @@ cannot decode there):
   f32/bf16/u8, 128x1088x2176) against their plain versions, then the three
   entry points
   ``python -m rtvqa_tpu_torch.probes.{adm_stages,int8_dma,dma_floor}`` at
-  their default shapes.
+  their default shapes;
+* the JAX package's Python API (``api``): the standalone scorer
+  (``calculate_scene_complexity_score``) on the suite's 128 frames, equal
+  to the suite phase's score, kernels 1 and 2 launched, within the
+  values' tolerances of the plain path; the pairwise
+  ``block_match_motion_pyramid`` on 32 gray pairs (kernel 2), equal to the
+  series form and within MOTION_RTOL of the plain search;
+  ``compute_quality`` on the 128 pairs, its PSNR equal to the quality
+  loop's and its SSIM within API_SSIM_ATOL; ``extract_features`` and
+  ``compute_vmaf`` on 32 pairs through kernels 4, 6 and 7 against the
+  plain route on the card (walls, peak memory, peak bytes per pixel, and
+  a second chunk size giving equal features); ``orb_features`` on 8
+  frames with corners, the card against the CPU.
 
 The kernels' launch counts are set to 0 just before each path's kernel run
 and read just after it; every kernel of the path must have launched. Any
@@ -119,6 +131,16 @@ ROUTE_KERNELS = ("quality_luma_kernel", "ssim_sse_kernel", "vif_tail_kernel", "a
                  "reduce_rows_kernel", "reduce_segments_kernel")
 # Against the NumPy oracles: tests/test_quality.py (MSE, SSIM), test_vmaf.py (ADM).
 ORACLE_MSE_RTOL, ORACLE_SSIM_ATOL, ORACLE_ADM_RTOL = 1e-5, 1e-4, 5e-4
+# The API phase: pairs of the pairwise pyramid and of extract_features, and
+# ORB frames and keypoints; compute_quality's SSIM against the quality
+# loop's; the kernel route of extract_features against its plain route
+# (VIF/ADM as kernels 4-7 are held, motion from the same f64 sums, the
+# builtin model's score); ORB on the card against the CPU as
+# tests/test_torch_api_ops.py holds it against JAX (ANGLE_ATOL, DESC_BITS).
+API_PAIRS, ORB_FRAMES, ORB_K = 32, 8, 500
+API_SSIM_ATOL = 1e-6
+API_VQ_RTOL, API_MOTION_RTOL, API_VMAF_ATOL = 3e-4, 1e-6, 1e-3
+ORB_ANGLE_ATOL, ORB_DESC_BITS = 1e-5, 0
 
 
 def make_frames(n: int, h: int, w: int, seed: int):
@@ -359,8 +381,19 @@ def phase_oracle(dev) -> None:
     print("oracle: " + ", ".join(f"{k} {g:.6g} = {w:.6g}" for k, (g, w) in checks.items()))
 
 
-def phase_suite(dev, y, u, v) -> dict:
+def suite_clip(y, u, v):
+    """The suite's N sampled frames as a ``DecodedClip``, 333.3 ms apart."""
     from rtvqa_tpu_torch.io.video import DecodedClip
+
+    return DecodedClip(
+        y=y, u=u, v=v, timestamps_ms=np.arange(y.shape[0]) * 333.3, width=y.shape[2],
+        height=y.shape[1], n_frames_total=y.shape[0], bit_rate=0, avg_fps=3.0,
+    )
+
+
+def phase_suite(dev, y, u, v):
+    """The suite on the kernels and on the plain versions; returns (the
+    kernel run's launches, its result)."""
     from rtvqa_tpu_torch.kernels.gray import yuv420_to_gray_cuda
     from rtvqa_tpu_torch.kernels.motion import block_match_motion_cuda
     from rtvqa_tpu_torch.metrics.complexity import (
@@ -368,10 +401,7 @@ def phase_suite(dev, y, u, v) -> dict:
         calculate_average_scene_complexity,
     )
 
-    clip = DecodedClip(
-        y=y, u=u, v=v, timestamps_ms=np.arange(N) * 333.3, width=W, height=H,
-        n_frames_total=N, bit_rate=0, avg_fps=3.0,
-    )
+    clip = suite_clip(y, u, v)
 
     def run(impl):
         return calculate_average_scene_complexity(clip, 64, 64, motion_impl=impl, device=dev)
@@ -394,7 +424,7 @@ def phase_suite(dev, y, u, v) -> dict:
     print(f"suite: {N}x{H}x{W} kernel path {t_k:.4f} s, plain path {t_p:.4f} s; "
           f"launches {launches}; values {res_k}")
     profile_device("suite, kernel path", lambda: run(None))
-    return launches
+    return launches, res_k
 
 
 def check_quality_fused(label, got, want, h, w, hc, wc) -> dict:
@@ -887,7 +917,7 @@ def quality_kernels():
 def phase_quality(dev, ref_np, dis_np):
     """The streaming chunk loop over N frames on the kernels, then on the
     plain versions; pooled with the builtin VMAF model. Returns (launches,
-    kernel-path series)."""
+    kernel-path series, kernel-path pooled values)."""
     from rtvqa_tpu_torch.metrics.full_reference import auto_chunk
 
     chunk = auto_chunk(W, H)
@@ -903,7 +933,7 @@ def phase_quality(dev, ref_np, dis_np):
           f"ssim {pool_k['ssim']:.6f} vmaf {pool_k['vmaf']:.6f} (plain {pool_p['psnr']:.6f} "
           f"{pool_p['ssim']:.6f} {pool_p['vmaf']:.6f})")
     profile_device("quality, kernel path", lambda: run_loop(dev, ref_np, dis_np, chunk, "kernel"), top=12)
-    return launches, s_k
+    return launches, s_k, pool_k
 
 
 def phase_combined(dev, ref_np, dis_np, s_alone) -> None:
@@ -1233,6 +1263,211 @@ def phase_probes(dev, ref_y, dis_y) -> list[dict]:
     return [rec6a, *rec8, rec9]
 
 
+def score_bound(res) -> float:
+    """The scorer's tolerance from its values' (MOTION_RTOL on motion and
+    edge, SUITE_RTOL on the rest): sum of weight x tolerance x |value| /
+    range."""
+    from rtvqa_tpu_torch.metrics.complexity import SCORE_RANGES, SCORE_WEIGHTS
+
+    bound = 0.0
+    for key, weight in SCORE_WEIGHTS.items():
+        lo, hi = SCORE_RANGES[key]
+        tol = MOTION_RTOL if key in ("motion", "edge") else SUITE_RTOL
+        bound += weight * tol * abs(getattr(res, key)) / (hi - lo)
+    return bound
+
+
+def corner_gray(n: int, h: int, w: int, seed: int):
+    """(n, h, w) f32 gray with FAST corners: the gradient + noise luma with
+    flat squares of random levels pasted in, through the YUV420 -> gray
+    conversion (non-integer values)."""
+    from rtvqa_tpu_torch.ops.color import yuv420_to_gray
+
+    y, u, v = make_frames(n, h, w, seed)
+    rng = np.random.default_rng(seed + 1)
+    for frame in y:
+        for _ in range(400):
+            cy, cx, side = rng.integers(40, h - 40), rng.integers(40, w - 40), rng.integers(4, 12)
+            frame[cy - side:cy + side, cx - side:cx + side] = rng.integers(0, 256)
+    return yuv420_to_gray(*(torch.from_numpy(a) for a in (y, u, v)))
+
+
+def feature_peak_bytes(dev, ry, dy, impl: str) -> int:
+    """Peak device bytes one chunk's features take above their u8 inputs:
+    ``_frame_features`` and the motion SADs, as ``extract_features`` runs
+    them on an uploaded chunk."""
+    from rtvqa_tpu_torch.vmaf.motion import motion_sads
+    from rtvqa_tpu_torch.vmaf.predictor import _frame_features
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _frame_features(ry, dy, impl)
+    motion_sads(ry)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_api(dev, ref_np, dis_np, suite_res, series, pooled) -> None:
+    """The JAX package's API on the card at 1080p: the scorer on the suite's
+    N frames (kernels 1 and 2), the pairwise pyramid on API_PAIRS pairs
+    (kernel 2), ``compute_quality`` on the N pairs, ``extract_features`` /
+    ``compute_vmaf`` on API_PAIRS pairs (kernels 4, 6 and 7) and
+    ``orb_features`` on ORB_FRAMES frames against the CPU."""
+    from rtvqa_tpu_torch.io.video import DecodedClip
+    from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
+    from rtvqa_tpu_torch.kernels.gray import yuv420_to_gray_cuda
+    from rtvqa_tpu_torch.kernels.motion import block_match_motion_cuda
+    from rtvqa_tpu_torch.kernels.vif import vif_scale_cuda
+    from rtvqa_tpu_torch.metrics.complexity import (
+        calculate_average_scene_complexity,
+        calculate_scene_complexity_score,
+        scene_complexity_score,
+    )
+    from rtvqa_tpu_torch.metrics.quality import compute_quality
+    from rtvqa_tpu_torch.ops.color import yuv420_to_gray
+    from rtvqa_tpu_torch.ops.motion import (
+        block_match_motion,
+        block_match_motion_pyramid,
+        block_match_motion_pyramid_series,
+        down2_mean,
+    )
+    from rtvqa_tpu_torch.ops.orb import orb_features
+    from rtvqa_tpu_torch.vmaf.model import builtin_model
+    from rtvqa_tpu_torch.vmaf.predictor import (
+        FRAME_KEYS,
+        MEMORY_SHARE,
+        compute_vmaf,
+        default_chunk,
+        extract_features,
+    )
+
+    # The scorer: the suite on the kernels, then the weighted score.
+    clip = suite_clip(*ref_np)
+    calculate_scene_complexity_score(clip, 64, 64, device=dev)  # warm-up
+    score, t_score, counts = counted_run(
+        (yuv420_to_gray_cuda, block_match_motion_cuda),
+        lambda: calculate_scene_complexity_score(clip, 64, 64, device=dev))
+    check_launches("api scorer", counts, {"yuv420_to_gray_cuda": 1, "block_match_motion_cuda": 1})
+    if score != scene_complexity_score(suite_res):
+        raise AssertionError(f"api scorer {score} != the suite phase's score {scene_complexity_score(suite_res)}")
+    plain_res, t_plain = wall_s(lambda: calculate_average_scene_complexity(
+        clip, 64, 64, motion_impl="plain", device=dev))
+    plain_score, bound = scene_complexity_score(plain_res), score_bound(plain_res)
+    if not (np.isfinite(score) and abs(score - plain_score) <= bound):
+        raise AssertionError(f"api scorer: kernel path {score} vs plain {plain_score} beyond {bound:.3g}")
+    print(f"api scorer: {N}x{H}x{W}: score {score!r} (equal to the suite phase's; plain path {plain_score!r}, "
+          f"|diff| {abs(score - plain_score):.3g} <= {bound:.3g}); kernel path {t_score:.4f} s, plain suite "
+          f"{t_plain:.4f} s; launches {counts}")
+
+    # The pairwise pyramid on API_PAIRS consecutive pairs.
+    planes = [torch.from_numpy(a[:API_PAIRS + 1]).to(dev) for a in ref_np]
+    gray = yuv420_to_gray(*planes)
+    prev, curr = gray[:-1], gray[1:]
+    block_match_motion_pyramid(prev, curr)  # warm-up
+    got, t_k, counts = counted_run((block_match_motion_cuda,), lambda: block_match_motion_pyramid(prev, curr))
+    check_launches("api pyramid", counts, {}, {"block_match_motion_cuda": 1})
+    series_form = block_match_motion_pyramid_series(gray, BLOCK, RADIUS, impl="kernel")
+    if not torch.equal(got, series_form):
+        raise AssertionError("api pyramid: pairwise kernel route differs from the series form")
+    plain, t_p = wall_s(lambda: 2.0 * block_match_motion(down2_mean(prev), down2_mean(curr), BLOCK // 2,
+                                                          RADIUS // 2))
+    check_close("api pyramid vs plain", got, plain, rtol=MOTION_RTOL)
+    print(f"api pyramid: {tuple(prev.shape)} pairs: equal to the series form; max rel vs plain "
+          f"{max_rel(got, plain):.3g} (equal: {torch.equal(got, plain)}); kernel route {t_k:.4f} s, plain "
+          f"{t_p:.4f} s; launches {counts}")
+    del planes, gray, prev, curr, got, series_form, plain
+
+    # compute_quality on the N pairs against the quality loop's kernel path.
+    ref_clip, dis_clip = (DecodedClip(y=p[0], u=p[1], v=p[2], timestamps_ms=np.arange(N) * 1000.0 / FPS,
+                                      width=W, height=H, n_frames_total=N, bit_rate=0, avg_fps=FPS)
+                          for p in (ref_np, dis_np))
+    compute_quality(ref_clip, dis_clip, device=dev)  # warm-up
+    q, t_q = wall_s(lambda: compute_quality(ref_clip, dis_clip, device=dev))
+    if q["n_frames"] != N or not np.array_equal(q["psnr_frames"], series["psnr_y"]):
+        raise AssertionError("api compute_quality: psnr_frames differ from the quality loop's psnr_y")
+    if q["psnr"] != pooled["psnr"]:
+        raise AssertionError(f"api compute_quality: psnr {q['psnr']} vs the quality loop's {pooled['psnr']}")
+    ssim_err = float(np.abs(q["ssim_frames"].astype(np.float64) - series["ssim_all"]).max())
+    if not ssim_err <= API_SSIM_ATOL or abs(q["ssim"] - pooled["ssim"]) > API_SSIM_ATOL:
+        raise AssertionError(f"api compute_quality: ssim max abs err {ssim_err} > {API_SSIM_ATOL}")
+    print(f"api compute_quality: {N}x{H}x{W} pairs in {t_q:.4f} s: psnr {q['psnr']!r} and psnr_frames equal "
+          f"to the quality loop's; ssim {q['ssim']!r}, frames max abs err {ssim_err:.3g}")
+    profile_device("api compute_quality", lambda: compute_quality(ref_clip, dis_clip, device=dev))
+
+    # extract_features / compute_vmaf on API_PAIRS pairs, kernel route vs plain route.
+    ref_v, dis_v = (first_frames(c, API_PAIRS) for c in (ref_clip, dis_clip))
+    chunk = default_chunk(H, W, dev, "kernel")
+    extract_features(ref_v, dis_v, device=dev), extract_features(ref_v, dis_v, impl="plain", device=dev)
+    kernels = (vif_scale_cuda, adm_scale_cuda, adm_tail_cuda)
+    feats_k, t_k, counts = counted_run(kernels, lambda: extract_features(ref_v, dis_v, device=dev))
+    feats_p, t_p = wall_s(lambda: extract_features(ref_v, dis_v, impl="plain", device=dev))
+    n_chunks = -(-API_PAIRS // chunk)
+    check_launches("api extract_features", counts, {}, {
+        "vif_scale_cuda": 4 * n_chunks, "adm_scale_cuda": n_chunks, "adm_tail_cuda": n_chunks,
+        **{f"vif_scale_cuda[scale{k}]": n_chunks for k in range(4)}})
+    rels = {}
+    for key in (*FRAME_KEYS, "motion", "motion2"):
+        rtol = API_MOTION_RTOL if key.startswith("motion") else API_VQ_RTOL
+        a, b = torch.from_numpy(feats_k[key]), torch.from_numpy(feats_p[key])
+        if a.shape != (API_PAIRS,):
+            raise AssertionError(f"api extract_features {key}: shape {tuple(a.shape)}")
+        check_close(f"api extract_features {key}", a, b, rtol=rtol)
+        rels[key] = float(f"{max_rel(a, b):.3g}")
+    again = extract_features(ref_v, dis_v, chunk=API_PAIRS // 4, device=dev)
+    for key, value in feats_k.items():
+        if not np.array_equal(again[key], value):
+            raise AssertionError(f"api extract_features {key}: chunk {API_PAIRS // 4} differs from chunk {chunk}")
+    (score_k, details), t_vmaf = wall_s(lambda: compute_vmaf(ref_v, dis_v, return_details=True, device=dev))
+    score_p = float(builtin_model().predict(feats_p).numpy().mean())
+    if not (np.isfinite(score_k) and abs(score_k - score_p) <= API_VMAF_ATOL):
+        raise AssertionError(f"api compute_vmaf: kernel route {score_k} vs plain {score_p}")
+    mem = {impl: peak_gib(lambda impl=impl: extract_features(ref_v, dis_v, impl=impl, device=dev))
+           for impl in ("kernel", "plain")}
+    budget = torch.cuda.get_device_properties(dev).total_memory / MEMORY_SHARE / 2**30
+    if mem["kernel"] > budget:
+        raise AssertionError(f"api extract_features: peak {mem['kernel']:.2f} GiB over the chunk budget "
+                             f"{budget:.2f} GiB")
+    per_px = {}
+    ry, dy = (torch.from_numpy(a[0][:8]).to(dev) for a in (ref_np, dis_np))
+    for impl in ("kernel", "plain"):
+        for b in (2, 8):
+            per_px[f"{impl} {b}"] = round(feature_peak_bytes(dev, ry[:b], dy[:b], impl) / (b * H * W), 2)
+    del ry, dy
+    print(f"api extract_features: {API_PAIRS}x{H}x{W} pairs, default chunk {chunk} ({n_chunks} chunks): kernel "
+          f"route {t_k:.4f} s, plain route {t_p:.4f} s; peak {mem['kernel']:.2f} GiB vs {mem['plain']:.2f} GiB "
+          f"(budget {budget:.2f} GiB); peak bytes per pixel over a chunk's inputs {json.dumps(per_px)}; max rel "
+          f"vs plain {json.dumps(rels)}; chunk {API_PAIRS // 4} equal; launches {counts}; compute_vmaf "
+          f"{score_k!r} in {t_vmaf:.4f} s (plain features {score_p!r}, model {details['model']})")
+    profile_device("api extract_features, kernel route", lambda: extract_features(ref_v, dis_v, device=dev))
+    profile_device("api extract_features, plain route",
+                   lambda: extract_features(ref_v, dis_v, impl="plain", device=dev))
+
+    # orb_features on ORB_FRAMES 1080p frames, the card against the CPU.
+    g = corner_gray(ORB_FRAMES, H, W, SEED + 40)
+    want = orb_features(g, k=ORB_K)
+    got, t_orb = wall_s(lambda: orb_features(g.to(dev), k=ORB_K))
+    got = {k: v.cpu() for k, v in got.items()}
+    for key in ("ys", "xs", "valid", "fast_score", "score"):
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"api orb_features {key}: card differs from the CPU")
+    angle_err = max_abs(got["angle"], want["angle"])
+    bits = int((got["desc"] != want["desc"]).sum())
+    if not angle_err <= ORB_ANGLE_ATOL or bits > ORB_DESC_BITS:
+        raise AssertionError(f"api orb_features: angle err {angle_err}, {bits} descriptor bits differ")
+    print(f"api orb_features: {tuple(g.shape)}, K {ORB_K}: {int(want['valid'].sum())} valid keypoints; ys, xs, "
+          f"valid, fast_score and score equal to the CPU's, angle max abs err {angle_err:.3g}, {bits} of "
+          f"{got['desc'].numel()} descriptor bits differ; card {t_orb:.4f} s")
+
+
+def first_frames(clip, n: int):
+    """``clip``'s first ``n`` frames."""
+    import dataclasses
+
+    return dataclasses.replace(clip, y=clip.y[:n], u=clip.u[:n], v=clip.v[:n],
+                               timestamps_ms=clip.timestamps_ms[:n], n_frames_total=n)
+
+
 def main() -> int:
     name, smi = phase_device()
     print(f"nvidia-smi: {smi}")
@@ -1252,7 +1487,7 @@ def main() -> int:
     motion_rec = phase_motion(dev, yuv420_to_gray(y, u, v))
     del y, u, v
     phase_oracle(dev)
-    launches = phase_suite(dev, y_np, u_np, v_np)
+    launches, suite_res = phase_suite(dev, y_np, u_np, v_np)
     gray_rec["launches"] = launches["yuv420_to_gray_cuda"]
     motion_rec["launches"] = launches["block_match_motion_cuda"]
 
@@ -1265,7 +1500,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_quality_content(dev, first.stop, quality_recs)
     phase_quality_oracle(dev)
-    launches, series = phase_quality(dev, ref_np, dis_np)
+    launches, series, pooled = phase_quality(dev, ref_np, dis_np)
     for rec, wrapper in zip(quality_recs, ("quality_fused_cuda", "vif_tail_cuda",
                                            "adm_scale_cuda", "adm_tail_cuda")):
         rec["launches"] = launches[wrapper]
@@ -1275,6 +1510,9 @@ def main() -> int:
     phase_trace(dev, ref_np, dis_np, series)
     torch.cuda.empty_cache()
     probe_recs = phase_probes(dev, ref_np[0][first], dis_np[0][first])
+    torch.cuda.empty_cache()
+    phase_api(dev, ref_np, dis_np, suite_res, series, pooled)
+    torch.cuda.empty_cache()
 
     wide_ref = make_frames(WIDE_N, WIDE_H, WIDE_W, SEED + 7)
     wide_dis = distort(wide_ref, SEED + 8)

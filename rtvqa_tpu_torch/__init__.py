@@ -5,12 +5,14 @@ PyTorch with hand-written CUDA kernels (``csrc/``) for the hot ops:
 
 * ``cli``       — ``rtvqa-torch <config.json> <video>`` entry point.
 * ``pipeline``  — orchestrator (encode → analyze → CSV row) and CSV sink.
-* ``metrics``   — the eight-metric complexity suite, PSNR/SSIM, and the
-                  full-reference quality chunk engine.
-* ``vmaf``      — VMAF features (separable filters, motion, VIF, ADM) and
-                  the model loader / SVR predictor.
+* ``metrics``   — the eight-metric complexity suite and the standalone
+                  scene-complexity scorer, PSNR/SSIM (``compute_quality``),
+                  and the full-reference quality chunk engine.
+* ``vmaf``      — VMAF features (separable filters, motion, VIF, ADM), the
+                  model loader / SVR predictor, and ``compute_vmaf``.
 * ``ops``       — plain-PyTorch compute primitives (color, resize, scan, DCT,
-                  histogram, edges, ORB count, block-matching motion).
+                  histogram, edges, ORB keypoints and BRIEF descriptors,
+                  block-matching motion).
 * ``kernels``   — CUDA kernel wrappers beside their plain versions, and the
                   ``nvcc`` build/loader.
 * ``io``        — native libav decode/encode/probe (built from

@@ -153,6 +153,14 @@ def prefetch(iterator: Iterator, depth: int = 1) -> Iterator:
         t.join(timeout=5.0)
 
 
+def stream_batches(
+    path: str, frame_interval: int = 1, batch: int = 32, prefetch_depth: int = 1
+) -> Iterator[FrameBatch]:
+    """Sampled-frame batches of one clip, decoded ``prefetch_depth`` batches
+    ahead on a background thread."""
+    return prefetch(VideoStream(path, frame_interval, batch), depth=prefetch_depth)
+
+
 @dataclasses.dataclass
 class StagedFrameBatch:
     """A decoded batch plus, for full chunks, its planes on the device.

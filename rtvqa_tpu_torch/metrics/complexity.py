@@ -16,6 +16,10 @@ slots are masked out of every smoothed mean.
 -> gray and block-match motion) or their plain PyTorch versions ("plain").
 ``None`` means "kernel" for CUDA tensors and "plain" for CPU tensors;
 "kernel" on a CPU tensor raises.
+
+``calculate_scene_complexity_score`` is the reference's standalone scorer:
+the suite's eight values, min-max normalized by ``SCORE_RANGES`` and
+weighted by ``SCORE_WEIGHTS`` (the JAX package's constants, copied).
 """
 
 from __future__ import annotations
@@ -252,3 +256,86 @@ def calculate_average_scene_complexity(
     )
     packed = torch.stack([out[k] for k in METRIC_ORDER]).cpu()
     return ComplexityResult(**{k: float(packed[i]) for i, k in enumerate(METRIC_ORDER)})
+
+
+# --- standalone scorer (reference complexity_metrics.py:171-242) -----------
+
+# Normalization ranges (complexity_metrics.py:197-206); edge and motion are
+# recalibrated as in the JAX package: edge is a raw pixel count at 64x64,
+# motion's scale follows the block-matching substitution.
+SCORE_RANGES = {
+    "motion": (0.0, 10.0),
+    "dct": (1e6, 5e7),
+    "temporal_dct": (0.0, 1e7),
+    "histogram": (0.0, 8.0),
+    "edge": (0.0, 4096.0),
+    "orb": (0.0, 5000.0),
+    "color": (0.0, 8.0),
+    "framerate": (0.0, 2.0),
+}
+
+# Weights (complexity_metrics.py:219-240).
+SCORE_WEIGHTS = {
+    "motion": 0.25,
+    "dct": 0.15,
+    "temporal_dct": 0.15,
+    "histogram": 0.10,
+    "edge": 0.10,
+    "orb": 0.10,
+    "color": 0.10,
+    "framerate": 0.05,
+}
+
+
+def normalize(value: float, min_value: float, max_value: float) -> float:
+    """Min-max scale (reference ``complexity_metrics.py:167-169``)."""
+    return (value - min_value) / (max_value - min_value) if max_value > min_value else 0.0
+
+
+def scene_complexity_score(result: ComplexityResult) -> float:
+    """Weighted normalized scalar score of a suite result."""
+    vals = dataclasses.asdict(result)
+    score = 0.0
+    for key, weight in SCORE_WEIGHTS.items():
+        lo, hi = SCORE_RANGES[key]
+        score += weight * normalize(vals[key], lo, hi)
+    return score
+
+
+def calculate_scene_complexity_score(
+    clip,
+    resize_width: int,
+    resize_height: int,
+    smoothing_factor: float = 0.8,
+    frame_interval: int = 10,
+    num_workers=None,
+    batch_size: int = 100,
+    device: str | torch.device | None = None,
+) -> float:
+    """The scorer over a ``DecodedClip`` or a media path (the reference's
+    signature, ``complexity_metrics.py:171``, plus ``device``: the card by
+    default). A path is decoded here, every ``frame_interval``-th frame;
+    a still image (``validate_video_path`` -> "frame") is analysed as one
+    static pair of itself, so the spatial metrics measure the image and the
+    temporal ones are 0. ``num_workers`` bounds the decoder's threads;
+    ``batch_size`` is accepted for the signature (the suite takes the clip
+    in one batch)."""
+    if isinstance(clip, str):
+        from rtvqa_tpu_torch.io import video as vio
+
+        kind = vio.validate_video_path(clip)
+        clip = vio.decode_sampled(
+            clip, frame_interval=1 if kind == "frame" else frame_interval, threads=num_workers
+        )
+        if kind == "frame":
+            def dup(a: np.ndarray) -> np.ndarray:
+                return np.repeat(a[:1], 2, axis=0)
+
+            clip = dataclasses.replace(
+                clip, y=dup(clip.y), u=dup(clip.u), v=dup(clip.v),
+                timestamps_ms=dup(clip.timestamps_ms),
+            )
+    res = calculate_average_scene_complexity(
+        clip, resize_width, resize_height, smoothing_factor, device=device
+    )
+    return scene_complexity_score(res)

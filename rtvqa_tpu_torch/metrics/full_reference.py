@@ -50,9 +50,8 @@ from rtvqa_tpu_torch.metrics.quality import (
 )
 from rtvqa_tpu_torch.obs.logging import get_logger
 from rtvqa_tpu_torch.vmaf.adm import adm_features, adm_finalize
-from rtvqa_tpu_torch.vmaf.filters import filter1d_sep
 from rtvqa_tpu_torch.vmaf.model import builtin_model, load_model
-from rtvqa_tpu_torch.vmaf.motion import FILTER_5
+from rtvqa_tpu_torch.vmaf.motion import motion_sads
 from rtvqa_tpu_torch.vmaf.vif import vif_features
 
 logger = get_logger("rtvqa_tpu_torch.full_reference")
@@ -97,10 +96,9 @@ def program_a(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool):
     out = {}
     out.update(psnr_frames(ry, ru, rv, dy, du, dv))
     out.update(ssim_frames(ry, ru, rv, dy, du, dv))
-    blur = filter1d_sep(ry.float(), FILTER_5)
-    prev = torch.cat([prev_blur[None], blur[:-1]], dim=0)
-    out["motion_sad"] = _mask_first((blur - prev).abs().mean(dim=(-2, -1)), has_prev)
-    return torch.stack([out[k].float() for k in A_KEYS]), blur[-1]
+    sad, blur_last = motion_sads(ry, prev_blur)
+    out["motion_sad"] = _mask_first(sad, has_prev)
+    return torch.stack([out[k].float() for k in A_KEYS]), blur_last
 
 
 def program_b(ry, dy, vif_egl=None, adm_egl=None):
@@ -119,7 +117,9 @@ def chunk_plain(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=None,
     return torch.cat([pa, program_b(ry, dy, vif_egl, adm_egl)]), blur
 
 
-def _adm2_kernels(ry, dy, egl):
+def adm2_kernels(ry, dy, egl=None):
+    """Per-frame adm2 of a (B, H, W) luma pair through kernel 6 (scale 0)
+    and kernel 7 (scales 1-3)."""
     num, den, a_ref, a_dis = adm_scale_cuda(ry, dy, 0, egl=egl)
     tail = adm_tail_cuda(a_ref, a_dis, egl=egl)
     return adm_finalize(num + tail["num"], den + tail["den"], ry.shape)
@@ -134,7 +134,7 @@ def chunk_kernels(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=Non
         pa, blur = program_a(ry, ru, rv, dy, du, dv, prev_blur, has_prev)
         out = dict(zip(A_KEYS, pa))
         out.update(vif_features_cuda(ry, dy, egl=vif_egl))
-        out["adm2"] = _adm2_kernels(ry, dy, adm_egl)
+        out["adm2"] = adm2_kernels(ry, dy, adm_egl)
         return torch.stack([out[k].float() for k in CHUNK_KEYS]), blur
     fq = quality_fused_cuda(ry, ru, rv, dy, du, dv, prev_blur, egl=vif_egl)
     h2, w2 = ru.shape[-2:]
@@ -147,7 +147,7 @@ def chunk_kernels(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=Non
     out["motion_sad"] = _mask_first(fq["sad_sum"] / n_y, has_prev)
     out["vif_scale0"] = fq["vif_scale0"]
     out.update(vif_tail_cuda(fq["dec_ref"], fq["dec_dis"], egl=vif_egl))
-    out["adm2"] = _adm2_kernels(ry, dy, adm_egl)
+    out["adm2"] = adm2_kernels(ry, dy, adm_egl)
     return torch.stack([out[k].float() for k in CHUNK_KEYS]), fq["blur_carry"]
 
 

@@ -14,11 +14,18 @@ frame "All" = plane scores weighted by plane pixel counts.
 
 SSEs and block sums are integer sums (int64 / int32), so they are exact;
 the SSIM rational is evaluated in f32 in the JAX ops' order.
+
+``compute_quality`` runs both over two decoded clips in chunks of frames on
+one device and pools on the host, as ``pool_full_reference`` pools the
+streaming loop's series.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from rtvqa_tpu_torch.device import get_device
 
 SSIM_C1 = int(0.01 * 0.01 * 255 * 255 * 64 + 0.5)         # 416
 SSIM_C2 = int(0.03 * 0.03 * 255 * 255 * 64 * 63 + 0.5)    # 235963
@@ -105,3 +112,40 @@ def ssim_frames(ref_y, ref_u, ref_v, dis_y, dis_u, dis_v) -> dict:
     n_y = ref_y.shape[-2] * ref_y.shape[-1]
     n_c = ref_u.shape[-2] * ref_u.shape[-1]
     return {"ssim_y": sy, "ssim_u": su, "ssim_v": sv, "ssim_all": ssim_all(sy, su, sv, n_y, n_c)}
+
+
+def pooled_mean(per_frame: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean of the valid frames' values (0 when none is valid)."""
+    validf = valid.float()
+    return torch.sum(per_frame * validf) / torch.sum(validf).clamp_min(1.0)
+
+
+def compute_quality(ref_clip, dis_clip, chunk: int = 32, device=None) -> dict:
+    """PSNR + SSIM between two decoded clips (every frame, full resolution),
+    ``chunk`` frames at a time on ``device`` (the card by default). Returns
+    the pooled ``psnr`` (of the mean frame MSE) and ``ssim`` (mean of the
+    frames' "All" SSIM), the per-frame ``psnr_frames`` (luma PSNR) and
+    ``ssim_frames``, and ``n_frames``. A ragged last chunk runs at its own
+    length; no frame depends on another, so the chunk size moves no value."""
+    dev = get_device(device)
+    n = min(ref_clip.y.shape[0], dis_clip.y.shape[0])
+    mse_avg, psnr_y, ssim_all = [], [], []
+    for start in range(0, n, chunk):
+        sl = slice(start, min(start + chunk, n))
+        planes = [torch.from_numpy(np.ascontiguousarray(a[sl])).to(dev) for a in (
+            ref_clip.y, ref_clip.u, ref_clip.v, dis_clip.y, dis_clip.u, dis_clip.v)]
+        p = psnr_frames(*planes)
+        s = ssim_frames(*planes)
+        mse_avg.append(p["mse_avg"].cpu().numpy())
+        psnr_y.append(p["psnr_y"].cpu().numpy())
+        ssim_all.append(s["ssim_all"].cpu().numpy())
+    empty = np.zeros(0, np.float32)
+    mse = np.concatenate(mse_avg) if n else empty
+    ssim = np.concatenate(ssim_all) if n else empty
+    return {
+        "psnr": float(pooled_psnr(torch.from_numpy(mse))) if n else float("inf"),
+        "psnr_frames": np.concatenate(psnr_y) if n else empty,
+        "ssim": float(np.mean(ssim)) if n else 0.0,
+        "ssim_frames": ssim,
+        "n_frames": int(n),
+    }

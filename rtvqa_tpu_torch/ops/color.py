@@ -26,6 +26,11 @@ def _half_index(n: int, device: torch.device) -> torch.Tensor:
     return torch.arange(n, device=device) // 2
 
 
+def upsample_chroma(c: torch.Tensor) -> torch.Tensor:
+    """(..., H/2, W/2) -> (..., H, W) by 2x2 nearest replication."""
+    return c.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
 def yuv_rows_to_rgb_planes(
     y_rows: torch.Tensor, u_rows: torch.Tensor, v_rows: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -52,6 +57,13 @@ def yuv420_to_rgb_planes(
     three (..., H, W) f32 planes (r, g, b) in [0, 255]."""
     rows = _half_index(y.shape[-2], y.device)
     return yuv_rows_to_rgb_planes(y, u.index_select(-2, rows), v.index_select(-2, rows))
+
+
+def yuv420_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Planar YUV420 -> (..., H, W, 3) f32 RGB in [0, 255], the interleaved
+    form of :func:`yuv420_to_rgb_planes` (small arrays; hot paths keep the
+    planes)."""
+    return torch.stack(yuv420_to_rgb_planes(y, u, v), dim=-1)
 
 
 def yuv420_to_gray(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Orthonormal DCT-II as ``D_h @ X @ D_w^T`` in f32. Two exact rewrites, as in
 the JAX package: Parseval (``sum(dct(x)**2) == sum(x**2)``) for the spatial
 energy, and linearity (``dct(a) - dct(b) == dct(a - b)``) for the temporal
-difference.
+difference. ``blockwise_dct8x8`` applies the 8-point basis to each 8x8
+tile of a frame.
 """
 
 from __future__ import annotations
@@ -59,3 +60,16 @@ def temporal_dct_abs_diff(
     difference."""
     diff = prev_gray.float() - curr_gray.float()
     return torch.sum(torch.abs(dct2(diff, dh, dw)), dim=(-2, -1))
+
+
+def blockwise_dct8x8(x: torch.Tensor) -> torch.Tensor:
+    """8x8 blockwise orthonormal DCT-II: (..., H, W) -> (..., H/8, W/8, 8, 8)
+    f32, as two (8, 8) f32 contractions per tile. H and W must be multiples
+    of 8."""
+    h, w = x.shape[-2], x.shape[-1]
+    if h % 8 or w % 8:
+        raise ValueError(f"blockwise DCT needs H and W multiples of 8, got {h}x{w}")
+    lead = x.shape[:-2]
+    tiles = x.float().reshape(*lead, h // 8, 8, w // 8, 8).transpose(-3, -2)
+    d = dct_table(8, x.device)
+    return torch.matmul(torch.matmul(d, tiles), d.t())

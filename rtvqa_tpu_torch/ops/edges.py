@@ -6,6 +6,9 @@
 3. double threshold, then hysteresis as an iterated 8-connected dilation
    until nothing changes (the JAX ``while_loop`` becomes a Python loop on a
    ``changed`` flag, capped at H*W as there).
+
+``sobel_edge_density`` is the cheap single-threshold count (L1 Sobel
+magnitude above a threshold, no NMS or hysteresis).
 """
 
 from __future__ import annotations
@@ -85,3 +88,10 @@ def canny_edges(
 def canny_edge_count(gray: torch.Tensor, low: float = 100.0, high: float = 200.0) -> torch.Tensor:
     """Per-frame count of Canny edge pixels over (..., H, W), f32."""
     return torch.sum(canny_edges(gray, low, high), dim=(-2, -1)).float()
+
+
+def sobel_edge_density(gray: torch.Tensor, threshold: float = 200.0) -> torch.Tensor:
+    """Per-frame count of pixels whose L1 Sobel magnitude exceeds
+    ``threshold`` over (..., H, W), f32."""
+    gx, gy = sobel_gradients(gray)
+    return torch.sum((torch.abs(gx) + torch.abs(gy)) > threshold, dim=(-2, -1)).float()

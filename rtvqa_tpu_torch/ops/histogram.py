@@ -50,6 +50,17 @@ def gray_entropy(gray: torch.Tensor) -> torch.Tensor:
     return entropy_masked(histogram_256(gray))
 
 
+def _summed_channel_entropy(planes: torch.Tensor) -> torch.Tensor:
+    """R + G + B entropies of channel-major (..., 3, H, W) planes."""
+    ents = entropy_eps(histogram_256(planes))               # (..., 3)
+    return (ents[..., 0] + ents[..., 1]) + ents[..., 2]
+
+
+def color_entropy(rgb: torch.Tensor) -> torch.Tensor:
+    """Per-frame summed R/G/B histogram entropies over (..., H, W, 3)."""
+    return _summed_channel_entropy(torch.movedim(rgb, -1, -3))
+
+
 def color_entropy_sampled(
     y: torch.Tensor,
     u: torch.Tensor,
@@ -74,5 +85,4 @@ def color_entropy_sampled(
     if w != out_w:
         rw = bilinear_table(out_w, w, dev) if rw is None else rw
         rgb_rows = resize_cols(rgb_rows, rw)
-    ents = entropy_eps(histogram_256(rgb_rows))             # (..., 3)
-    return (ents[..., 0] + ents[..., 1]) + ents[..., 2]
+    return _summed_channel_entropy(rgb_rows)

@@ -13,7 +13,10 @@ means whatever order the tiles are visited in, which lets the CUDA kernel
 (``kernels/motion.py``) be held to exact equality on integer-valued frames.
 
 The production search is the pyramid: 2x2-mean downsample, exhaustive at
-block/2 and radius/2, magnitudes scaled by 2.
+block/2 and radius/2, magnitudes scaled by 2. ``block_match_motion_pyramid``
+takes it pairwise and ``block_match_motion_pyramid_series`` over the
+consecutive pairs of one series (pooled once); the pooling is per frame, so
+the two give the same values on the same pairs.
 """
 
 from __future__ import annotations
@@ -48,6 +51,16 @@ def block_match_index(
         best_sad = torch.where(better, sad, best_sad)
         best_k = torch.where(better, k, best_k)
     return best_k
+
+
+def block_match_field(
+    prev_gray: torch.Tensor, curr_gray: torch.Tensor, block: int = 16, radius: int = 8
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Displacement field of the exhaustive search: (..., H, W) -> (dy, dx),
+    each (..., nby, nbx) f32; first (raster-order) minimum wins."""
+    best_k = block_match_index(prev_gray, curr_gray, block, radius)
+    side = 2 * radius + 1
+    return (best_k // side - radius).float(), (best_k % side - radius).float()
 
 
 def displacement_magnitudes(radius: int, device: torch.device) -> torch.Tensor:
@@ -89,6 +102,25 @@ def down2_mean(x: torch.Tensor) -> torch.Tensor:
     s = s + xc[..., 1::2, 0::2]
     s = s + xc[..., 1::2, 1::2]
     return 0.25 * s
+
+
+def block_match_motion_pyramid(
+    prev_gray: torch.Tensor, curr_gray: torch.Tensor, block: int = 16, radius: int = 8
+) -> torch.Tensor:
+    """Pyramid motion per pair: (..., H, W) -> (...,) f32. On CUDA tensors the
+    search runs in the block-match kernel, the leading dimensions folded
+    into its batch; on the CPU in the plain version."""
+    bp = max(block // 2, 1)
+    rp = max(radius // 2, 1)
+    pg, cg = down2_mean(prev_gray), down2_mean(curr_gray)
+    if cg.device.type == "cpu":
+        return 2.0 * block_match_motion(pg, cg, block=bp, radius=rp)
+    # kernels/motion.py imports this module, so the kernel is imported here.
+    from rtvqa_tpu_torch.kernels.motion import block_match_motion_cuda
+
+    lead = cg.shape[:-2]
+    flat = [a.reshape(-1, *a.shape[-2:]) for a in (pg, cg)]
+    return 2.0 * block_match_motion_cuda(*flat, block=bp, radius=rp).reshape(lead)
 
 
 def block_match_motion_pyramid_series(

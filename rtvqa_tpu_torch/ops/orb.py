@@ -1,20 +1,27 @@
-"""ORB keypoint count (counterpart of the count path of
-``rtvqa_tpu/ops/orb.py``).
+"""ORB keypoints and descriptors (counterpart of ``rtvqa_tpu/ops/orb.py``).
 
 Dense FAST-9/16 score map (max over the 16 length-9 ring arcs of the minimum
 signed contrast), strict 3x3 non-max suppression, the ORB edge border masked
-out, counted over an ``nlevels`` image pyramid and capped at ``nfeatures``.
-BRIEF descriptors (``orb_features``) are off the complexity path and not
-ported yet.
+out. ``orb_keypoint_count`` counts these corners over an ``nlevels`` image
+pyramid, capped at ``nfeatures`` (the complexity metric).
+``orb_features`` keeps a fixed K of them per frame, ranked by Harris
+response, with intensity-centroid orientations and steered BRIEF-256
+descriptors from the JAX package's seeded sampling pattern.
+
+Ties rank as ``jax.lax.top_k`` ranks them, the lower flat index first (a
+stable descending sort), also among the ``-inf`` slots that fill K when a
+frame has fewer corners; their ``ys``/``xs`` are outputs too.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rtvqa_tpu_torch.ops.edges import sobel_gradients
 from rtvqa_tpu_torch.ops.resize import resize_bilinear
 
 # Bresenham circle of radius 3, clockwise from 12 o'clock (dy, dx).
@@ -121,3 +128,122 @@ def orb_keypoint_count(
         kmap = fast_keypoint_map(level, fast_threshold, edge_threshold)
         total = total + torch.sum(kmap > 0, dim=(-2, -1)).float()
     return torch.clamp(total, max=float(nfeatures))
+
+
+# --- fixed-K keypoints + BRIEF descriptors -----------------------------------
+
+
+def harris_response(gray: torch.Tensor, block_size: int = 7, k: float = 0.04) -> torch.Tensor:
+    """Dense Harris corner response over (..., H, W): R = det(M) - k tr(M)^2
+    with M the 3x3-Sobel structure tensor summed over a ``block_size`` box
+    (zero border), scaled as cv2 scales it. The box sums add the shifted
+    rows, then the shifted columns, in the JAX op's order."""
+    gx, gy = sobel_gradients(gray)
+    r = block_size // 2
+
+    def box_sum(x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[-2], x.shape[-1]
+        p = F.pad(x, (r, r, r, r))
+        rows = p[..., 0:h, r:r + w]
+        for i in range(1, block_size):
+            rows = rows + p[..., i:i + h, r:r + w]
+        pr = F.pad(rows, (r, r))
+        out = pr[..., :, 0:w]
+        for j in range(1, block_size):
+            out = out + pr[..., :, j:j + w]
+        return out
+
+    scale_sq = (1.0 / (4 * block_size * 255.0)) ** 2
+    sxx = box_sum(gx * gx) * scale_sq
+    syy = box_sum(gy * gy) * scale_sq
+    sxy = box_sum(gx * gy) * scale_sq
+    det = sxx * syy - sxy * sxy
+    trace = sxx + syy
+    return det - k * trace * trace
+
+
+@functools.lru_cache(maxsize=4)
+def _brief_pattern(n_bits: int = 256, patch: int = 24, seed: int = 7) -> np.ndarray:
+    """(n_bits, 4) int32 sampling pairs (y1, x1, y2, x2), Gaussian BRIEF
+    style: the JAX package's recipe on the same seeded generator."""
+    rng = np.random.default_rng(seed)
+    sigma = patch / 5.0
+    pts = np.clip(
+        np.rint(rng.normal(0.0, sigma, size=(n_bits, 4))), -(patch // 2), patch // 2
+    ).astype(np.int32)
+    pts.setflags(write=False)  # cached: callers must not mutate
+    return pts
+
+
+def orb_features(
+    gray: torch.Tensor,
+    k: int = 500,
+    fast_threshold: float = 20.0,
+    edge_threshold: int = 31,
+    n_bits: int = 256,
+) -> dict[str, torch.Tensor]:
+    """Fixed-K keypoints, orientations and BRIEF descriptors of (B, H, W)
+    frames.
+
+    FAST corners are ranked by Harris response and the best K kept (cv2
+    ORB's ``HARRIS_SCORE`` retention). Returns ``ys, xs`` (B, K) int32,
+    ``score`` (B, K) Harris response, ``fast_score`` (B, K), ``valid`` (B,
+    K) bool, ``angle`` (B, K) radians and ``desc`` (B, K, n_bits) bool;
+    slots past a frame's corner count are invalid (score 0, desc False)."""
+    b, h, w = gray.shape
+    dev = gray.device
+    kmap = fast_keypoint_map(gray, fast_threshold, edge_threshold)
+    harris = harris_response(gray)
+    rank = torch.where(kmap > 0, harris, float("-inf")).reshape(b, h * w)
+    score, idx = torch.sort(rank, dim=1, descending=True, stable=True)
+    score, idx = score[:, :k], idx[:, :k]
+    valid = torch.isfinite(score)
+    score = torch.where(valid, score, 0.0)
+    ys, xs = idx // w, idx % w
+    fast_sc = torch.take_along_dim(kmap.reshape(b, h * w), idx, dim=1)
+
+    g = gray.float()
+    batch = torch.arange(b, device=dev)
+
+    # Orientation: intensity centroid over the radius-3 disc.
+    r = 3
+    gp = F.pad(g, (r, r, r, r))
+    m01 = torch.zeros((b, idx.shape[1]), dtype=torch.float32, device=dev)
+    m10 = torch.zeros_like(m01)
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            if dy * dy + dx * dx > r * r:
+                continue
+            yy = (ys + dy + r).clamp(0, h + 2 * r - 1)
+            xx = (xs + dx + r).clamp(0, w + 2 * r - 1)
+            val = gp[batch[:, None], yy, xx]
+            m01 = m01 + dy * val
+            m10 = m10 + dx * val
+    # atan2, cos and sin in float64, rounded to f32: their last f32 bits
+    # would differ between the CPU and the card, and a rotated offset
+    # within an ULP of .5 would round the other way.
+    angle64 = torch.atan2(m01.double(), m10.double())
+    angle = angle64.float()
+
+    # Steered BRIEF: the sampling pattern rotated by each keypoint's angle.
+    pat = torch.from_numpy(_brief_pattern(n_bits).astype(np.float32)).to(dev)
+    ca, sa = torch.cos(angle64).float()[..., None], torch.sin(angle64).float()[..., None]
+
+    def rot(y: torch.Tensor, x: torch.Tensor):
+        ry = y * ca + x * sa
+        rx = -y * sa + x * ca
+        return torch.round(ry).long(), torch.round(rx).long()
+
+    def sample(y_off: torch.Tensor, x_off: torch.Tensor) -> torch.Tensor:
+        yy = (ys[..., None] + y_off).clamp(0, h - 1)
+        xx = (xs[..., None] + x_off).clamp(0, w - 1)
+        return g[batch[:, None, None], yy, xx]
+
+    y1, x1 = rot(pat[:, 0], pat[:, 1])
+    y2, x2 = rot(pat[:, 2], pat[:, 3])
+    desc = sample(y1, x1) < sample(y2, x2)
+    return {
+        "ys": ys.to(torch.int32), "xs": xs.to(torch.int32), "score": score,
+        "fast_score": fast_sc, "valid": valid, "angle": angle,
+        "desc": desc & valid[..., None],
+    }

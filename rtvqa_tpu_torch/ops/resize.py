@@ -4,6 +4,10 @@
 cv2 ``INTER_LINEAR`` geometry: half-pixel centers, ``src = (dst + 0.5) *
 scale - 0.5``, clamped, no antialiasing. The weight tables are built in
 numpy with the same formula as the JAX package, so they are bitwise equal.
+
+``resize_bilinear_sampled`` gathers the <= 2*out_h source rows that carry
+weight before the row product, for callers whose upstream work shrinks
+with the rows read; its result is bit for bit ``resize_bilinear``'s.
 """
 
 from __future__ import annotations
@@ -68,3 +72,16 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     if w != out_w:
         x = resize_cols(x, bilinear_table(out_w, w, x.device))
     return x
+
+
+def resize_bilinear_sampled(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """:func:`resize_bilinear`, bit for bit, with the row product taken over
+    the gathered rows of ``bilinear_sample_plan`` only (the dropped terms
+    are exact zeros)."""
+    h = x.shape[-2]
+    x = x if x.is_floating_point() else x.float()
+    if h != out_h:
+        idx, mat = bilinear_sample_plan(out_h, h)
+        rows = x.index_select(-2, torch.from_numpy(idx.copy()).to(x.device))
+        x = resize_rows(rows, torch.from_numpy(mat.copy()).to(device=x.device, dtype=x.dtype))
+    return resize_bilinear(x, out_h, out_w)

@@ -1,22 +1,56 @@
-"""Masked exponential smoothing and masked means (counterpart of
+"""Exponential smoothing and masked means (counterpart of
 ``rtvqa_tpu/ops/scan.py``).
 
-pandas ``ewm(alpha, adjust=True).mean()`` over a padded series where invalid
-slots are skipped as if absent. The JAX package runs the two linear
-recurrences as an associative scan; a clip has at most a few hundred sampled
-frames, so here the recurrences are written in closed form as one (N, N)
-weight matrix in float64:
+pandas ``ewm(alpha, adjust=True).mean()`` is the ratio of two first-order
+linear recurrences ``s_t = (1-a) * s_{t-1} + v_t``: the numerator over the
+values, the denominator over ones. The JAX package runs them as an
+associative scan; here they run as the same log-depth doubling scan over
+pairs ``(A, b)`` (the affine map ``s -> A*s + b``): step k composes each
+slot with the slot 2^k before it. No step divides by a power of the decay,
+so nothing underflows where the closed form ``cumsum(x / d^t) * d^t``
+would (0.2^t leaves f32 at t ~ 55).
+
+``ewm_mean_masked`` smooths a padded series whose invalid slots are skipped
+as if absent. A clip has at most a few hundred sampled frames, so its two
+recurrences are written in closed form as one (N, N) weight matrix in
+float64:
 
     num_t = sum_{i<=t, valid_i} (1-a)^(c_t - c_i) * x_i,   den_t likewise,
 
 with ``c`` the running count of valid slots. Exponents are non-negative and
-float64 holds ``0.2 ** 128 ~ 3e-90`` exactly enough, where an f32
-cumulative-product form would underflow.
+float64 holds ``0.2 ** 128 ~ 3e-90``. (On the doubling scan in float64 its
+f32 results would move by one ULP on about half of all series.)
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def linear_recurrence(decay: torch.Tensor, values: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """``s_t = decay_t * s_{t-1} + values_t`` (s_{-1} = 0) along ``axis``."""
+    a = torch.movedim(decay, axis, 0)
+    b = torch.movedim(values, axis, 0)
+    a, b = torch.broadcast_tensors(a, b)
+    n = b.shape[0]
+    step = 1
+    while step < n:
+        # Slots t >= step take (A_t, b_t) o (A_{t-step}, b_{t-step}).
+        b = torch.cat([b[:step], a[step:] * b[:-step] + b[step:]])
+        a = torch.cat([a[:step], a[step:] * a[:-step]])
+        step *= 2
+    return torch.movedim(b, 0, axis)
+
+
+def ewm_mean(x: torch.Tensor, alpha: float, axis: int = 0) -> torch.Tensor:
+    """pandas ``ewm(alpha=alpha, adjust=True).mean()`` along ``axis``, in
+    ``x``'s float dtype (f32 for other dtypes)."""
+    if x.dtype not in (torch.float32, torch.float64):
+        x = x.float()
+    decay = torch.full_like(x, 1.0 - alpha)
+    num = linear_recurrence(decay, x, axis)
+    den = linear_recurrence(decay, torch.ones_like(x), axis)
+    return num / den
 
 
 def ewm_mean_masked(

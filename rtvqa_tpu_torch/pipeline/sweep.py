@@ -1,6 +1,6 @@
 """Multi-clip CRF-ladder sweep with a resumable manifest (counterpart of
 ``rtvqa_tpu/pipeline/sweep.py::run_sweep``; the device-parallel
-``run_sweep_sharded`` is not ported, ROADMAP.md queue A, item 5).
+``run_sweep_sharded`` is not ported, ROADMAP.md queue A, item 4).
 
 Every (clip, crf) item goes through the single-clip pipeline
 (``pipeline.analyzer``) on one device and appends one CSV row. Items that

@@ -140,9 +140,15 @@ def pool_scale(sums, offset: float):
     """(num, den) summed over k scales from their L3 sums, laid out
     (..., 6k) as (num_h, den_h, num_v, den_v, num_d, den_d) per scale, and
     the sum of the k scales' :func:`crop_offset`: cube roots after the
-    sums, plus the three per-band offsets of each scale."""
-    roots = sums ** (1.0 / 3.0)
-    return roots[..., 0::2].sum(dim=-1) + 3.0 * offset, roots[..., 1::2].sum(dim=-1) + 3.0 * offset
+    sums, plus the three per-band offsets of each scale. Computed in
+    float64, then rounded to f32: on the CPU a vector or a scalar ``pow``,
+    and a reduction's order, can follow how many frames share the tensor;
+    in float64 that moves a value ~1e-16 relative, below what f32 keeps, so
+    a frame's value does not follow the chunk it came in."""
+    roots = sums.double() ** (1.0 / 3.0)
+    num = roots[..., 0::2].sum(dim=-1) + 3.0 * offset
+    den = roots[..., 1::2].sum(dim=-1) + 3.0 * offset
+    return num.float(), den.float()
 
 
 def adm_one_scale(o, t, scale: int, enhn_gain_limit=None):

@@ -818,3 +818,103 @@ def test_chunk_kernels_match_synthetic_golden(dev):
             "vif": (3e-4, 0.0), "adm": (3e-4, 0.0)}
     worst = g.check_golden(packed.cpu().numpy(), golden, CHUNK_KEYS, tols)
     print(f"max rel errors against the golden: {worst}")
+
+
+# --- the JAX package's API on the card ---------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (75, 101)])
+def test_pairwise_pyramid_kernel_route_matches_plain(dev, shape):
+    """ops/motion.py::block_match_motion_pyramid on CUDA tensors: kernel 2,
+    the leading dimensions folded into its batch; equal to the series form
+    on the same pairs, and to the plain search: exactly on integer-valued
+    frames, rel 5e-3 on smoothed ones (near-tie argmins)."""
+    from rtvqa_tpu_torch.kernels.motion import block_match_motion_cuda
+    from rtvqa_tpu_torch.ops.motion import (
+        block_match_motion,
+        block_match_motion_pyramid,
+        block_match_motion_pyramid_series,
+        down2_mean,
+    )
+
+    rng = np.random.default_rng(40)
+    tex = rng.integers(0, 256, (shape[0] + 32, shape[1] + 32))
+    integer = np.stack([np.roll(tex, (2 * i, -4 * i), (0, 1))[: shape[0], : shape[1]] for i in range(7)])
+    smooth = torch.nn.functional.avg_pool2d(torch.from_numpy(integer.astype(np.float32))[:, None], 3, 1, 1)
+    for frames, rtol in ((integer.astype(np.float32), 0.0), (smooth[:, 0].numpy() / 3.0, 5e-3)):
+        g = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+        before = block_match_motion_cuda.launches
+        got = block_match_motion_pyramid(g[:-1], g[1:])
+        torch.cuda.synchronize()
+        assert block_match_motion_cuda.launches == before + 1
+        assert torch.equal(got, block_match_motion_pyramid_series(g, impl="kernel"))
+        plain = 2.0 * block_match_motion(down2_mean(g[:-1]), down2_mean(g[1:]), 8, 4)
+        torch.testing.assert_close(got, plain, rtol=rtol, atol=0)
+        folded = block_match_motion_pyramid(g[:-1].reshape(2, 3, *shape), g[1:].reshape(2, 3, *shape))
+        assert folded.shape == (2, 3) and torch.equal(folded.reshape(-1), got)
+
+
+def _api_clip(rng, n, h, w, dis: bool):
+    from rtvqa_tpu_torch.io.video import DecodedClip
+
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = np.stack([128 + 60 * np.sin(xx / 5.0 + i) * np.cos(yy / 7.0) + rng.normal(0, 12, (h, w))
+                  for i in range(n)])
+    y = np.clip(y, 0, 255).astype(np.uint8)
+    if dis:
+        y = np.clip(y.astype(np.int16) + rng.integers(-6, 7, y.shape), 0, 255).astype(np.uint8)
+    u = rng.integers(90, 170, (n, h // 2, w // 2), np.uint8)
+    return DecodedClip(y=y, u=u, v=u.copy(), timestamps_ms=np.arange(n) * 40.0, width=w, height=h,
+                       n_frames_total=n, bit_rate=0, avg_fps=25.0)
+
+
+@pytest.mark.parametrize("shape", [(72, 128), (1080, 1920)])
+def test_extract_features_kernel_route_matches_plain(dev, shape):
+    """vmaf/predictor.py on the card: kernels 4, 6 and 7 against the plain
+    route on the same device, VIF/ADM rel 3e-4, motion rel 1e-6; the chunk
+    size moves no value; compute_vmaf runs on the card by default."""
+    from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
+    from rtvqa_tpu_torch.kernels.vif import vif_scale_cuda
+    from rtvqa_tpu_torch.vmaf.model import builtin_model
+    from rtvqa_tpu_torch.vmaf.predictor import FRAME_KEYS, compute_vmaf, extract_features
+
+    rng = np.random.default_rng(42)
+    ref, dis = _api_clip(rng, 5, *shape, False), _api_clip(rng, 5, *shape, True)
+    before = vif_scale_cuda.launches, adm_scale_cuda.launches, adm_tail_cuda.launches
+    got = extract_features(ref, dis, chunk=2, device=dev)
+    assert (vif_scale_cuda.launches, adm_scale_cuda.launches, adm_tail_cuda.launches) == (
+        before[0] + 12, before[1] + 3, before[2] + 3)
+    want = extract_features(ref, dis, impl="plain", device=dev)
+    for key in FRAME_KEYS:
+        assert _rel(torch.from_numpy(got[key]), torch.from_numpy(want[key])) < 3e-4, key
+    for key in ("motion", "motion2"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-6, err_msg=key)
+    for again in (extract_features(ref, dis, device=dev), extract_features(ref, dis, chunk=3, device="cuda")):
+        for key, value in got.items():
+            np.testing.assert_array_equal(again[key], value, err_msg=key)
+    score = compute_vmaf(ref, dis)
+    assert score == pytest.approx(float(builtin_model().predict(got).numpy().mean()), abs=1e-5)
+
+
+def test_orb_features_card_matches_cpu(dev):
+    """ops/orb.py on the card against the CPU on non-integer frames: the
+    ops are elementwise, shifts and a stable sort (angles through float64),
+    so keypoints, scores and descriptors are equal."""
+    from rtvqa_tpu_torch.ops.orb import orb_features
+
+    rng = np.random.default_rng(43)
+    yy, xx = np.mgrid[0:240, 0:320]
+    g = np.stack([(xx * 0.37 + yy * 0.23 + 9 * i) % 256 + rng.uniform(0, 8, (240, 320)) for i in range(3)])
+    for frame in g:
+        for _ in range(60):
+            cy, cx, s = rng.integers(8, 232), rng.integers(8, 312), rng.integers(3, 7)
+            frame[cy - s:cy + s, cx - s:cx + s] = rng.uniform(0, 255)
+    g = torch.from_numpy(g.astype(np.float32))
+    got = orb_features(g.to(dev), k=200)
+    want = orb_features(g, k=200)
+    assert int(want["valid"].sum()) > 100
+    for key, w in want.items():
+        if key == "angle":
+            torch.testing.assert_close(got[key].cpu(), w, rtol=0, atol=1e-5)
+        else:
+            assert torch.equal(got[key].cpu(), w), key
