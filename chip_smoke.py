@@ -61,7 +61,22 @@ cannot decode there):
   ``compute_vmaf`` on 32 pairs through kernels 4, 6 and 7 against the
   plain route on the card (walls, peak memory, peak bytes per pixel, and
   a second chunk size giving equal features); ``orb_features`` on 8
-  frames with corners, the card against the CPU.
+  frames with corners, the card against the CPU;
+* the multi-device paths (``sharded``, ``rtvqa_tpu_torch/parallel/``):
+  in this process a world of one on NCCL, where the sharded quality loop
+  (``pipeline/quality_sharded.py::sharded_quality_loop``, rank 0 scattering
+  each chunk, ``parallel/sharding.py::sharded_quality_chunk_step`` per
+  rank) over the quality cell's 128 pairs at chunk 64 must equal the
+  single-device kernel loop bit for bit (kernels 3, 5, 6 and 7), and the
+  sharded suite on a 1 x 1 mesh over 2 clips of 64 of the suite's frames
+  must agree with ``calculate_average_scene_complexity`` per clip within
+  the suite's tolerances (kernels 1 and 2); then a spawned world of two on
+  gloo, both ranks on this card: the quality loop on a 1 x 2 mesh against
+  world 1 (shard-boundary SADs rel 1e-4, every other value rtol 2e-4 /
+  atol 2e-4, the JAX sharded tests' budget) and the suite on 2 x 1 and
+  1 x 2 meshes against world 1, each rank checking its kernels launched.
+  The world-2 run checks the halo and lockstep logic; its walls are no
+  speed figure.
 
 The kernels' launch counts are set to 0 just before each path's kernel run
 and read just after it; every kernel of the path must have launched. Any
@@ -139,6 +154,8 @@ ORACLE_MSE_RTOL, ORACLE_SSIM_ATOL, ORACLE_ADM_RTOL = 1e-5, 1e-4, 5e-4
 # tests/test_torch_api_ops.py holds it against JAX (ANGLE_ATOL, DESC_BITS).
 API_PAIRS, ORB_FRAMES, ORB_K = 32, 8, 500
 API_SSIM_ATOL = 1e-6
+# The sharded phase: the suite's N frames as 2 clips; the world-2 spawn's limit.
+SHARDED_CLIPS, SHARDED_TIMEOUT_S = 2, 300.0
 API_VQ_RTOL, API_MOTION_RTOL, API_VMAF_ATOL = 3e-4, 1e-6, 1e-3
 ORB_ANGLE_ATOL, ORB_DESC_BITS = 1e-5, 0
 
@@ -1460,6 +1477,199 @@ def phase_api(dev, ref_np, dis_np, suite_res, series, pooled) -> None:
           f"{got['desc'].numel()} descriptor bits differ; card {t_orb:.4f} s")
 
 
+def sharded_quality_run(mesh, ref_np, dis_np, chunk: int):
+    """``analyze_full_reference_sharded``'s loop after opening the streams:
+    rank 0 reads prefetched batches of the in-memory pairs, scatters each
+    chunk and every rank runs the sharded chunk step. Returns (series,
+    pooled) on rank 0, (None, None) elsewhere."""
+    import torch.distributed as dist
+
+    from rtvqa_tpu_torch.io.stream import prefetch, stage_to_device
+    from rtvqa_tpu_torch.metrics.full_reference import pool_full_reference
+    from rtvqa_tpu_torch.parallel.sharding import sharded_quality_chunk_step
+    from rtvqa_tpu_torch.pipeline.quality_sharded import sharded_quality_loop
+
+    def open_pair(stage):
+        its = [prefetch(stage_to_device(frame_batches(p, chunk), chunk, stage), depth=1)
+               for p in (ref_np, dis_np)]
+        return (chunk, *its)
+
+    rank0 = dist.get_rank() == 0
+    series, n = sharded_quality_loop(mesh, sharded_quality_chunk_step(mesh), open_pair if rank0 else None)
+    return series, (pool_full_reference(series, n) if rank0 else None)
+
+
+def sharded_clips(y, u, v, mesh):
+    """This rank's block of the suite's N frames as SHARDED_CLIPS clips of
+    N / SHARDED_CLIPS frames, 333.3 ms apart: (y, u, v, ts, n_valid) on its
+    device."""
+    c_all, per = SHARDED_CLIPS, N // SHARDED_CLIPS
+    n_clip, n_frame = mesh.shape
+    cl, fl = c_all // n_clip, per // n_frame
+    c0, f0 = mesh.rank("clip") * cl, mesh.rank("frame") * fl
+    ts = np.tile((np.arange(per) * 333.3).astype(np.float32), c_all)
+
+    def block(a):
+        a = a.reshape(c_all, per, *a.shape[1:])[c0:c0 + cl, f0:f0 + fl]
+        return torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device)
+
+    return (*(block(a) for a in (y, u, v, ts)), torch.full((cl,), per))
+
+
+def sharded_complexity_run(mesh, y, u, v):
+    """The sharded suite over the SHARDED_CLIPS clips: (C, 8) values in
+    METRIC_ORDER on every rank."""
+    from rtvqa_tpu_torch.metrics.complexity import METRIC_ORDER
+    from rtvqa_tpu_torch.parallel.sharding import sharded_complexity_suite
+
+    fn = sharded_complexity_suite(mesh, resize_h=64, resize_w=64, block=BLOCK, radius=RADIUS)
+    out = fn(*sharded_clips(y, u, v, mesh))
+    return torch.stack([out[k] for k in METRIC_ORDER], 1).cpu().numpy()
+
+
+def check_complexity(label, got, want) -> dict:
+    """(C, 8) values against per-clip results within the suite's
+    tolerances (motion MOTION_RTOL, every other metric SUITE_RTOL, edge
+    included, as phase_suite holds them); returns the max rel per metric."""
+    from rtvqa_tpu_torch.metrics.complexity import METRIC_ORDER
+
+    worst = {}
+    for j, key in enumerate(METRIC_ORDER):
+        tol = MOTION_RTOL if key == "motion" else SUITE_RTOL
+        for c in range(got.shape[0]):
+            a, b = float(got[c, j]), float(want[c, j])
+            if not (np.isfinite(a) and abs(a - b) <= tol * max(abs(b), 1e-12)):
+                raise AssertionError(f"{label} clip {c} {key}: {a} vs {b}")
+            worst[key] = max(worst.get(key, 0.0), abs(a - b) / max(abs(b), 1e-12))
+    return worst
+
+
+def _sharded_world2(seed: int) -> dict:
+    """One rank of the world-2 run (gloo, both ranks on cuda:0): the quality
+    loop on a 1 x 2 mesh, rank 0 holding the frames, then the suite on 2 x 1
+    and 1 x 2 meshes; every rank checks that its kernels launched."""
+    import torch.distributed as dist
+
+    from rtvqa_tpu_torch.parallel.launch import init_from_env
+    from rtvqa_tpu_torch.parallel.sharding import make_mesh
+
+    dev = init_from_env("cuda")
+    rank0 = dist.get_rank() == 0
+    y, u, v = make_frames(N, H, W, seed)
+    ref_np, dis_np = (y, u, v), (distort((y, u, v), seed + 3) if rank0 else None)
+    chunk = 64
+    mesh = make_mesh(1, 2, device=dev)
+    (series, pooled), t_q, launches = counted_run(
+        quality_kernels(), lambda: sharded_quality_run(mesh, ref_np, dis_np, chunk))
+    check_launches(f"sharded world 2 quality, rank {dist.get_rank()}", launches,
+                   {k: 1 for k in ("quality_fused_cuda", "vif_tail_cuda", "adm_scale_cuda", "adm_tail_cuda")})
+    out = {"series": series, "pooled": pooled, "quality_s": t_q, "launches": {"quality": launches}}
+    for shape in ((2, 1), (1, 2)):
+        m = make_mesh(*shape, device=dev)
+        vals, t_c, counts = counted_run(quality_kernels(), lambda m=m: sharded_complexity_run(m, y, u, v))
+        check_launches(f"sharded world 2 complexity {shape}, rank {dist.get_rank()}", counts,
+                       {"yuv420_to_gray_cuda": 1, "block_match_motion_cuda": 1})
+        out[f"complexity {shape[0]}x{shape[1]}"] = vals
+        out[f"complexity_s {shape[0]}x{shape[1]}"] = t_c
+    return out if rank0 else {k: out[k] for k in out if k not in ("series", "pooled")}
+
+
+def phase_sharded(dev, ref_np, dis_np, series, pooled, smi) -> None:
+    """The multi-device paths at 1080p. World 1 on NCCL in this process: the
+    sharded quality loop over the N pairs at chunk 64 (bit for bit the
+    single-device kernel loop's series and pooled values; kernels 3, 5, 6
+    and 7), and the sharded suite on a 1 x 1 mesh over SHARDED_CLIPS clips
+    of the suite's frames against ``calculate_average_scene_complexity``
+    per clip (kernels 1 and 2). World 2 on gloo, both ranks on this card
+    (spawned): the same loop on a 1 x 2 mesh against world 1, and the suite
+    on 2 x 1 and 1 x 2 meshes. World 2 checks the halo, scatter and
+    lockstep logic on the real kernels; its walls are no speed figure (two
+    processes share one card and gloo stages through the host)."""
+    import torch.distributed as dist
+
+    from rtvqa_tpu_torch.io.video import DecodedClip
+    from rtvqa_tpu_torch.metrics.complexity import METRIC_ORDER, calculate_average_scene_complexity
+    from rtvqa_tpu_torch.metrics.full_reference import CHUNK_KEYS
+    from rtvqa_tpu_torch.parallel.launch import spawn, world
+    from rtvqa_tpu_torch.parallel.sharding import make_mesh
+
+    chunk, per = 64, N // SHARDED_CLIPS
+    y, u, v = ref_np  # the suite's frames
+    with world("cuda") as dev1:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"world 1: backend {dist.get_backend()}, size {dist.get_world_size()}")
+        mesh = make_mesh(1, 1, device=dev1)
+        sharded_quality_run(mesh, ref_np, dis_np, chunk)  # warm-up
+        (s_sh, pool_sh), t_sh, launches = counted_run(
+            quality_kernels(), lambda: sharded_quality_run(mesh, ref_np, dis_np, chunk))
+        _, t_single = wall_s(lambda: run_loop(dev, ref_np, dis_np, chunk, "kernel"))
+        check_launches("sharded world 1 quality", launches,
+                       {k: 1 for k in ("quality_fused_cuda", "vif_tail_cuda", "adm_scale_cuda", "adm_tail_cuda")})
+        for key in CHUNK_KEYS:
+            if not np.array_equal(s_sh[key], series[key]):
+                raise AssertionError(f"sharded world 1 series {key} differs from the single-device loop's")
+        for key in ("psnr", "ssim", "vmaf"):
+            if pool_sh[key] != pooled[key]:
+                raise AssertionError(f"sharded world 1 pooled {key}: {pool_sh[key]} vs {pooled[key]}")
+        print(f"sharded world 1 (NCCL) quality: {N}x{H}x{W} pairs in chunks of {chunk}: {t_sh:.4f} s, "
+              f"single-device loop {t_single:.4f} s ({smi}); series and pooled values bit for bit the "
+              f"single-device loop's; launches {launches}")
+
+        sharded_complexity_run(mesh, y, u, v)  # warm-up
+        c1, t_c1, counts = counted_run(quality_kernels(), lambda: sharded_complexity_run(mesh, y, u, v))
+        check_launches("sharded world 1 complexity", counts,
+                       {"yuv420_to_gray_cuda": 1, "block_match_motion_cuda": 1})
+
+        def per_clip():
+            res = []
+            for c in range(SHARDED_CLIPS):
+                sl = slice(c * per, (c + 1) * per)
+                clip = DecodedClip(y=y[sl], u=u[sl], v=v[sl], timestamps_ms=np.arange(per) * 333.3,
+                                   width=W, height=H, n_frames_total=per, bit_rate=0, avg_fps=3.0)
+                r = calculate_average_scene_complexity(clip, 64, 64, device=dev)
+                res.append([getattr(r, k) for k in METRIC_ORDER])
+            return np.array(res)
+
+        single, t_c_single = wall_s(per_clip)
+        worst = check_complexity("sharded world 1 complexity", c1, single)
+        print(f"sharded world 1 (NCCL) complexity: {SHARDED_CLIPS} clips x {per} frames on a 1 x 1 mesh "
+              f"{t_c1:.4f} s, per-clip suite {t_c_single:.4f} s ({smi}); launches {counts}; max rel "
+              f"vs the per-clip suite {json.dumps(worst)}")
+
+    t0 = time.perf_counter()
+    ranks = spawn(_sharded_world2, 2, "gloo", "cuda", SEED, timeout=SHARDED_TIMEOUT_S)
+    t_w2 = time.perf_counter() - t0
+    s2, pool2 = ranks[0]["series"], ranks[0]["pooled"]
+    boundary = np.zeros(N, bool)
+    boundary[chunk // 2::chunk] = True      # each chunk's first frame on frame rank 1
+    diffs = {}
+    for key in CHUNK_KEYS:
+        a, b = s2[key], s_sh[key]
+        if a.shape != (N,) or not np.isfinite(a).all():
+            raise AssertionError(f"sharded world 2 series {key}: shape {a.shape}")
+        if key == "motion_sad":
+            check_close("sharded world 2 boundary SADs", torch.from_numpy(a[boundary]),
+                        torch.from_numpy(b[boundary]), rtol=1e-4)
+            a, b = a[~boundary], b[~boundary]
+        check_close(f"sharded world 2 series {key}", torch.from_numpy(a), torch.from_numpy(b), 2e-4, 2e-4)
+        diffs[key] = max_abs(torch.from_numpy(s2[key]), torch.from_numpy(s_sh[key]))
+    for key in ("psnr", "ssim", "vmaf"):
+        if not abs(pool2[key] - pool_sh[key]) <= 2e-4 + 2e-4 * abs(pool_sh[key]):
+            raise AssertionError(f"sharded world 2 pooled {key}: {pool2[key]} vs {pool_sh[key]}")
+    comp = {}
+    for shape in ("2x1", "1x2"):
+        for r, rec in enumerate(ranks):
+            comp[f"{shape} rank {r}"] = check_complexity(f"sharded world 2 complexity {shape} rank {r}",
+                                                         rec[f"complexity {shape}"], c1)
+    print(f"sharded world 2 (gloo, both ranks on one card; checks the halo and lockstep logic, not speed): "
+          f"quality on a 1 x 2 mesh, {N} pairs in chunks of {chunk}: max abs vs world 1 "
+          f"{json.dumps(diffs)}; boundary SADs within rel 1e-4; pooled psnr {pool2['psnr']:.6f} ssim "
+          f"{pool2['ssim']:.6f} vmaf {pool2['vmaf']:.6f}; complexity on 2 x 1 and 1 x 2 meshes, max rel "
+          f"vs world 1 {json.dumps(comp)}; walls rank 0: quality {ranks[0]['quality_s']:.4f} s, "
+          f"complexity 2x1 {ranks[0]['complexity_s 2x1']:.4f} s, 1x2 {ranks[0]['complexity_s 1x2']:.4f} s; "
+          f"the spawned world {t_w2:.2f} s ({smi})")
+
+
 def first_frames(clip, n: int):
     """``clip``'s first ``n`` frames."""
     import dataclasses
@@ -1512,6 +1722,8 @@ def main() -> int:
     probe_recs = phase_probes(dev, ref_np[0][first], dis_np[0][first])
     torch.cuda.empty_cache()
     phase_api(dev, ref_np, dis_np, suite_res, series, pooled)
+    torch.cuda.empty_cache()
+    phase_sharded(dev, ref_np, dis_np, series, pooled, smi)
     torch.cuda.empty_cache()
 
     wide_ref = make_frames(WIDE_N, WIDE_H, WIDE_W, SEED + 7)

@@ -4,7 +4,9 @@ Same layer map and module names as the JAX package, written in plain
 PyTorch with hand-written CUDA kernels (``csrc/``) for the hot ops:
 
 * ``cli``       — ``rtvqa-torch <config.json> <video>`` entry point.
-* ``pipeline``  — orchestrator (encode → analyze → CSV row) and CSV sink.
+* ``pipeline``  — orchestrator (encode → analyze → CSV row), CSV sink, the
+                  CRF-ladder sweep and its sharded form, the sharded
+                  quality engine and the batched corpus analyzer.
 * ``metrics``   — the eight-metric complexity suite and the standalone
                   scene-complexity scorer, PSNR/SSIM (``compute_quality``),
                   and the full-reference quality chunk engine.
@@ -17,6 +19,11 @@ PyTorch with hand-written CUDA kernels (``csrc/``) for the hot ops:
                   ``nvcc`` build/loader.
 * ``io``        — native libav decode/encode/probe (built from
                   ``native/rtvqa_io.cpp``) and streaming batches.
+* ``parallel``  — process groups (one process per card, torchrun or a
+                  world of one), the ("clip", "frame") device mesh, the
+                  sharded complexity suite and quality step.
+* ``examples``  — the corpus example (``python -m
+                  rtvqa_tpu_torch.examples.analyze_corpus``).
 * ``config``, ``obs`` — config schema, logging, stage timer.
 * ``device``    — device selection (``cuda`` unless the CPU is asked for)
                   and the f32 precision settings.

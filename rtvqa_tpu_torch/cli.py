@@ -1,20 +1,29 @@
 """CLI entry point of the PyTorch port — the same UX as ``rtvqa_tpu.cli``:
 
-    python -m rtvqa_tpu_torch.cli <config.json> <input_video> [--sweep [CRF ...]] [--json]
-    rtvqa-torch <config.json> <input_video> [--sweep [CRF ...]] [--json]
+    python -m rtvqa_tpu_torch.cli <config.json> <input_video> [--sweep [CRF ...]] [--sharded] [--json]
+    rtvqa-torch <config.json> <input_video> [--sweep [CRF ...]] [--sharded] [--json]
+    torchrun --nproc-per-node N -m rtvqa_tpu_torch.cli <config.json> <input_video> --sweep [CRF ...]
 
 Runs on the card (``--device cuda``, the default; it raises without one);
 ``--device cpu`` runs the plain PyTorch ops on the CPU. ``--sweep`` runs the
-CRF ladder on that one device. ``--trace DIR`` wraps the run in a
+CRF ladder: on one device, or with ``--sharded`` as the device-parallel
+sweep (``pipeline/sweep.py::run_sweep_sharded``) over the process group's
+ranks, one per card (NCCL; gloo with ``--device cpu``). Under plain
+``python`` the group is a world of one; under ``torchrun`` it is torchrun's
+N processes, and a sweep shards whether or not ``--sharded`` is given, as
+the JAX CLI shards when it sees more than one device.
+``config.data_parallel_devices`` bounds the mesh. Without ``--sweep`` the
+single-clip path runs (``--sharded`` changes nothing there, as in the JAX
+CLI), on rank 0 only under torchrun. ``--trace DIR`` wraps the run in a
 ``torch.profiler`` trace written to DIR as a Chrome trace JSON
-(``obs/profiler.py::device_trace``). ``--sharded`` (multi-GPU) is accepted
-for parity with the JAX CLI and refused, as it is not ported yet.
+(``obs/profiler.py::device_trace``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from rtvqa_tpu_torch.config import load_config
@@ -32,7 +41,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="Run a CRF-ladder sweep instead of the single configured CRF. "
                         "With no values, sweeps the default ladder (18/23/28/33).")
     parser.add_argument("--sharded", action="store_true",
-                        help="Device-parallel sweep driver (not ported yet).")
+                        help="Run a sweep as the device-parallel sweep (frames sharded over "
+                        "the ranks). Default: sharded under torchrun with more than one rank.")
     parser.add_argument("--trace", type=str, default=None, metavar="DIR",
                         help="Write a torch.profiler trace of the run (Chrome trace JSON) into DIR.")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -41,8 +51,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="Emit one JSON line with the metrics row (or the sweep stats) "
                         "and the stage profile.")
     args = parser.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError("--sharded is not ported to rtvqa_tpu_torch yet")
+    world_size = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
 
     setup_logging()
     logger = get_logger("rtvqa_tpu_torch.cli")
@@ -51,11 +61,19 @@ def main(argv: list[str] | None = None) -> int:
     try:
         with device_trace(args.trace, args.device):
             if args.sweep is not None:
-                from rtvqa_tpu_torch.pipeline.sweep import DEFAULT_CRF_LADDER, run_sweep
+                from rtvqa_tpu_torch.pipeline.sweep import (
+                    DEFAULT_CRF_LADDER,
+                    run_sweep,
+                    run_sweep_sharded,
+                )
 
                 # A bare --sweep means the default ladder, not a single-CRF run.
                 ladder = tuple(args.sweep) or DEFAULT_CRF_LADDER
-                result = run_sweep([args.input_video], config, crf_ladder=ladder, device=args.device)
+                sweep = run_sweep_sharded if args.sharded or world_size > 1 else run_sweep
+                result = sweep([args.input_video], config, crf_ladder=ladder, device=args.device)
+            elif rank != 0:
+                logger.info("Single-clip mode runs on rank 0; rank %d has nothing to do", rank)
+                return 0
             else:
                 from rtvqa_tpu_torch.pipeline.analyzer import process_video_and_extract_metrics
 
@@ -64,7 +82,7 @@ def main(argv: list[str] | None = None) -> int:
                 )
         if timer.totals:
             timer.log_summary()
-        if args.json:
+        if args.json and rank == 0:
             print(json.dumps({"metrics": result, "profile": timer.summary()}, default=float))
         logger.info("Processing completed successfully.")
         return 0

@@ -180,20 +180,29 @@ class ComplexitySuite(nn.Module):
         n_valid: int,                 # number of real (unpadded) frames
     ) -> dict[str, torch.Tensor]:
         """The 8 smoothed-mean scalars keyed by metric name."""
-        n_pad = y.shape[0]
-        idx = torch.arange(n_pad, device=y.device)
-        s = self.series(y, u, v)
-        pair_valid = idx[1:] < n_valid
-        tdct_valid = idx[2:] < n_valid
-        fps_series, fps_valid = fps_variation(timestamps_ms, idx < n_valid)
+        return smooth_series(self.series(y, u, v), timestamps_ms, n_valid, self.alpha)
 
-        a = self.alpha
-        out = {k: _smoothed_masked_mean(s[k], pair_valid, a)
-               for k in ("motion", "dct", "histogram", "edge", "orb", "color")}
-        # Temporal DCT pairs consecutive frames of s[1:]: slots 1.. of its series.
-        out["temporal_dct"] = _smoothed_masked_mean(s["temporal_dct"][1:], tdct_valid, a)
-        out["framerate"] = _smoothed_masked_mean(fps_series, fps_valid, a)
-        return out
+
+def smooth_series(
+    s: dict[str, torch.Tensor], timestamps_ms: torch.Tensor, n_valid: int, alpha: float
+) -> dict[str, torch.Tensor]:
+    """The suite's tail: ``s`` holds ``ComplexitySuite.series`` of a padded
+    batch of ``len(timestamps_ms)`` frames (each series one shorter), of
+    which the first ``n_valid`` are real. Each series is EWM-smoothed over
+    its valid slots and averaged; framerate variation comes from the
+    timestamps. Returns the 8 scalars keyed by metric name. The sharded
+    suite (``parallel/sharding.py``) ends in this function too."""
+    idx = torch.arange(timestamps_ms.shape[0], device=timestamps_ms.device)
+    pair_valid = idx[1:] < n_valid
+    tdct_valid = idx[2:] < n_valid
+    fps_series, fps_valid = fps_variation(timestamps_ms, idx < n_valid)
+
+    out = {k: _smoothed_masked_mean(s[k], pair_valid, alpha)
+           for k in ("motion", "dct", "histogram", "edge", "orb", "color")}
+    # Temporal DCT pairs consecutive frames of s[1:]: slots 1.. of its series.
+    out["temporal_dct"] = _smoothed_masked_mean(s["temporal_dct"][1:], tdct_valid, alpha)
+    out["framerate"] = _smoothed_masked_mean(fps_series, fps_valid, alpha)
+    return out
 
 
 def complexity_suite(

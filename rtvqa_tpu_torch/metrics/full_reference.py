@@ -160,14 +160,17 @@ def auto_chunk(width: int, height: int, requested: Optional[int] = None) -> int:
     return max(2, (chunk // 2) * 2)
 
 
-def _quality_chunk_loop(ref_it, dis_it, chunk: int, vif_egl, adm_egl, device, impl: str, tap=None):
+def _quality_chunk_loop(ref_it, dis_it, chunk: int, vif_egl, adm_egl, device, impl: str, tap=None,
+                        runner=None):
     """Consume lockstep (ref, dis) ``StagedFrameBatch`` iterators; returns
     (per-frame series keyed by ``CHUNK_KEYS``, n_frames). ``impl``:
-    "kernel" (``chunk_kernels``) or "plain" (``chunk_plain``).
+    "kernel" (``chunk_kernels``) or "plain" (``chunk_plain``); ``runner``,
+    if given, runs each chunk in their place with their arguments (the
+    sharded loop's scatter and step, ``pipeline/quality_sharded.py``).
     ``tap(ref_host, dis_host, n, offset)``, if given, is called once per
     chunk with the decoded host batches, the chunk's count ``n`` of valid
     frames and the global index of its first frame."""
-    body = chunk_kernels if impl == "kernel" else chunk_plain
+    body = runner or (chunk_kernels if impl == "kernel" else chunk_plain)
     series: dict[str, list[np.ndarray]] = {k: [] for k in CHUNK_KEYS}
     carry_blur = None
     first = True

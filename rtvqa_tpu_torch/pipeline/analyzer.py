@@ -154,25 +154,28 @@ def analyze_video(
                         device=dev,
                     )
 
-        # Each complexity column holds the metric its header names.
-        metrics.update(
-            {
-                "Advanced Motion Complexity": comp.motion,
-                "DCT Complexity": comp.dct,
-                "Temporal DCT Complexity": comp.temporal_dct,
-                "Histogram Complexity": comp.histogram,
-                "Edge Detection Complexity": comp.edge,
-                "ORB Feature Complexity": comp.orb,
-                "Color Histogram Complexity": comp.color,
-                "Framerate Variation": comp.framerate,
-            }
-        )
+        metrics.update(complexity_columns(comp))
         logger.info("Metrics extracted: %s", metrics)
         if own_timer:
             timer.log_summary()
         return metrics
     finally:
         shutil.rmtree(temp_dir, ignore_errors=True)
+
+
+def complexity_columns(comp) -> dict[str, float]:
+    """The eight complexity cells of a CSV row from a ``ComplexityResult``:
+    each column holds the metric its header names."""
+    return {
+        "Advanced Motion Complexity": comp.motion,
+        "DCT Complexity": comp.dct,
+        "Temporal DCT Complexity": comp.temporal_dct,
+        "Histogram Complexity": comp.histogram,
+        "Edge Detection Complexity": comp.edge,
+        "ORB Feature Complexity": comp.orb,
+        "Color Histogram Complexity": comp.color,
+        "Framerate Variation": comp.framerate,
+    }
 
 
 def process_video_and_extract_metrics(

@@ -116,19 +116,46 @@ def test_cli_json_line(env, capsys):
     assert {"encode", "decode", "complexity"} <= set(out["profile"]["stages"])
 
 
-@pytest.mark.parametrize("flag", [["--sweep"], ["--sweep", "18", "28"], ["--sharded"], ["--trace", "t"]])
+@pytest.mark.parametrize("flag", [["--sweep"], ["--sweep", "18", "28"], ["--sweep", "30", "--sharded"],
+                                  ["--trace", "t"]])
 def test_cli_refuses_unported_modes(env, tmp_path, capsys, flag):
-    """``--sharded`` is still refused. ``--trace DIR`` writes a non-empty
-    trace directory and the same CSV row as the run without it. ``--sweep``
-    runs the CRF ladder (the default one when bare): its rows and manifest
-    equal ``rtvqa_tpu.pipeline.sweep.run_sweep``'s, and a rerun skips every
-    item."""
+    """Every CLI mode runs on the port (the name stays from when some were
+    refused). ``--trace DIR`` writes a non-empty trace directory and the
+    same CSV row as the run without it. ``--sweep`` runs the CRF ladder
+    (the default one when bare): its rows and manifest equal
+    ``rtvqa_tpu.pipeline.sweep.run_sweep``'s, and a rerun skips every item.
+    ``--sweep --sharded`` runs the device-parallel sweep in a world of one
+    (gloo on the CPU): its rows and manifest equal the port's ``run_sweep``'s,
+    and it leaves no process group behind."""
+    import torch.distributed as dist
+
     from rtvqa_tpu.pipeline.sweep import DEFAULT_CRF_LADDER, run_sweep
     from rtvqa_tpu_torch.cli import main as torch_main
 
-    if flag[0] == "--sharded":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            torch_main([str(env["dir"] / "torch.json"), env["clip"], *flag])
+    if "--sharded" in flag:
+        from rtvqa_tpu_torch.pipeline.sweep import run_sweep as torch_run_sweep
+
+        cfg = {"resize_width": 32, "resize_height": 32, "frame_interval": 3,
+               "allow_builtin_vmaf": True, "preset": "ultrafast"}
+        t_csv, s_csv = str(tmp_path / "sharded.csv"), str(tmp_path / "seq.csv")
+        with open(tmp_path / "sharded.json", "w") as f:
+            json.dump({**cfg, "csv_file": s_csv}, f)
+        argv = [str(tmp_path / "sharded.json"), env["clip"], *flag, "--device", "cpu", "--json"]
+        assert torch_main(argv) == 0
+        assert not dist.is_initialized()
+        stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["metrics"]
+        assert stats == {"done": 1, "failed": 0, "skipped": 0}
+        assert torch_run_sweep([env["clip"]], Config(**cfg, csv_file=t_csv), crf_ladder=[30],
+                               device="cpu") == stats
+        (srow,), (trow,) = read_rows(s_csv), read_rows(t_csv)
+        assert srow.keys() == trow.keys() and srow["VMAF"] != ""
+        for col, val in trow.items():
+            if col in IDENTITY_COLUMNS:
+                assert srow[col] == val, col
+            else:
+                assert float(srow[col]) == pytest.approx(float(val), rel=2e-3, abs=1e-5), col
+        with open(s_csv + ".manifest.jsonl") as f, open(t_csv + ".manifest.jsonl") as g:
+            assert f.read() == g.read()
         return
     if flag[0] == "--trace":
         trace_dir = tmp_path / flag[1]
@@ -282,6 +309,14 @@ assert all(bool(torch.isfinite(x).all()) for x in vif.values())
 acc = ComplexityAccumulator(32, 32, chunk=2, device="cpu")
 acc.add(clip.y, clip.u, clip.v, clip.timestamps_ms)
 assert np.allclose(acc.finalize().as_tuple(), res.as_tuple(), rtol=1e-5)
+from rtvqa_tpu_torch.metrics.complexity import METRIC_ORDER
+from rtvqa_tpu_torch.parallel.launch import world
+from rtvqa_tpu_torch.parallel.sharding import make_mesh, sharded_complexity_suite
+with world("cpu") as dev:
+    fn = sharded_complexity_suite(make_mesh(device=dev), resize_h=32, resize_w=32)
+    one = [torch.from_numpy(a)[None] for a in (clip.y, clip.u, clip.v, clip.timestamps_ms.astype(np.float32))]
+    out = fn(*one, torch.tensor([n]))
+assert np.allclose([float(out[k][0]) for k in METRIC_ORDER], res.as_tuple(), rtol=1e-5)
 assert sys.modules["jax"] is None and sys.modules["rtvqa_tpu"] is None
 print("OK", res.motion)
 """
@@ -304,7 +339,9 @@ def test_port_sources_have_no_jax_import():
 
     banned = re.compile(r"^\s*(from|import)\s+(jax|rtvqa_tpu)(\.|\s|$)")
     files = [*(REPO / "rtvqa_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
-    assert REPO / "rtvqa_tpu_torch" / "vmaf" / "predictor.py" in files
+    for module in ("vmaf/predictor.py", "parallel/launch.py", "parallel/sharding.py",
+                   "pipeline/quality_sharded.py", "pipeline/batch_analyzer.py"):
+        assert REPO / "rtvqa_tpu_torch" / module in files, module
     for f in files:
         for line in f.read_text().splitlines():
             assert not banned.match(line), f"{f}: {line}"
