@@ -22,7 +22,11 @@ cannot decode there):
   dis), the fused quality kernel also on 64 frames with flat regions
   (flat quadrants; letterbox bars), the kernel chunk body against the
   NumPy oracles of PSNR, SSIM and
-  ADM on a small input, then the streaming chunk loop
+  ADM on a small input, VIF scales 0-3 from kernels 3 + 5 (the chunk
+  body) and from kernel 4 (four chained scales) on two 540x960 pairs, and
+  kernel 1 on the suite's 128 1080p frames, against the port's float64
+  NumPy references (``vmaf/vif.py::vif_features_np``,
+  ``ops/color.py::yuv420_to_gray_np``), then the streaming chunk loop
   (``metrics.full_reference._quality_chunk_loop`` + ``pool_full_reference``,
   what ``analyze_full_reference`` runs after decoding) over 128 frames in
   two chunks, once on the kernels and once on the plain versions;
@@ -146,6 +150,16 @@ ROUTE_KERNELS = ("quality_luma_kernel", "ssim_sse_kernel", "vif_tail_kernel", "a
                  "reduce_rows_kernel", "reduce_segments_kernel")
 # Against the NumPy oracles: tests/test_quality.py (MSE, SSIM), test_vmaf.py (ADM).
 ORACLE_MSE_RTOL, ORACLE_SSIM_ATOL, ORACLE_ADM_RTOL = 1e-5, 1e-4, 5e-4
+# Against the port's float64 references (vmaf/vif.py::vif_features_np,
+# ops/color.py::yuv420_to_gray_np): VIF pairs at 540x960 (the reference
+# takes seconds per pair on the host, ~10x that at 1080p), the VIF
+# reference tolerance of ROADMAP.md queue C; gray within 1e-4 of 0-255,
+# about 6 f32 ULPs at 255 (kernel 1 rounds as its plain f32 version, which
+# is ~3 ULPs off the float64 value at most).
+F64_VIF_N, F64_VIF_H, F64_VIF_W = 2, 540, 960
+F64_VIF_RTOL = 3e-4
+F64_GRAY_ATOL = 1e-4
+VIF_KEYS = tuple(f"vif_scale{k}" for k in range(4))
 # The API phase: pairs of the pairwise pyramid and of extract_features, and
 # ORB frames and keypoints; compute_quality's SSIM against the quality
 # loop's; the kernel route of extract_features against its plain route
@@ -822,6 +836,70 @@ def phase_quality_oracle(dev) -> None:
                 raise AssertionError(f"quality oracle {key}[{i}]: kernels {gv} vs NumPy {wv}")
             worst[key] = max(worst.get(key, 0.0), abs(gv - wv))
     print("quality oracle: " + ", ".join(f"{k} max abs {v:.3g}" for k, v in worst.items()))
+
+
+def phase_float64_oracle(dev, y_np, u_np, v_np) -> None:
+    """VIF scales 0-3 from kernels 3 + 5 (``chunk_kernels``) and from kernel
+    4 (``vif_features_cuda``) on F64_VIF_N noisy pairs at 540x960, and
+    kernel 1 on the suite's frames, against the port's float64 NumPy
+    references; the references run on a pool of host threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rtvqa_tpu_torch.kernels.gray import yuv420_to_gray_cuda
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
+    from rtvqa_tpu_torch.kernels.vif import vif_features_cuda, vif_scale_cuda, vif_tail_cuda
+    from rtvqa_tpu_torch.metrics.full_reference import CHUNK_KEYS, chunk_kernels
+    from rtvqa_tpu_torch.ops.color import yuv420_to_gray_np
+    from rtvqa_tpu_torch.vmaf.vif import vif_features_np
+
+    t_phase = time.perf_counter()
+    n, h, w = F64_VIF_N, F64_VIF_H, F64_VIF_W
+    ref = make_frames(n, h, w, SEED + 9)
+    dis = distort(ref, SEED + 10)
+    planes = [torch.from_numpy(a).to(dev) for a in (*ref, *dis)]
+    blur0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    (packed, _), _, chunk_counts = counted_run(
+        (quality_fused_cuda, vif_tail_cuda), lambda: chunk_kernels(*planes, blur0, False))
+    k4, _, k4_counts = counted_run((vif_scale_cuda,), lambda: vif_features_cuda(planes[0], planes[3]))
+    check_launches("float64 oracle", {**chunk_counts, **k4_counts},
+                   {"quality_fused_cuda": 1, "vif_tail_cuda": 1, "vif_scale_cuda": 4})
+    routes = {"kernels 3 + 5": {k: packed[CHUNK_KEYS.index(k)] for k in VIF_KEYS}, "kernel 4": k4}
+    routes = {r: {k: v.double().cpu().numpy() for k, v in got.items()} for r, got in routes.items()}
+    yuv = [torch.from_numpy(a).to(dev) for a in (y_np, u_np, v_np)]
+    gray, _, gray_counts = counted_run((yuv420_to_gray_cuda,), lambda: yuv420_to_gray_cuda(*yuv))
+    check_launches("float64 oracle", gray_counts, {"yuv420_to_gray_cuda": 1})
+    gray = gray.cpu().numpy()
+    del yuv, planes
+
+    def gray_err(i):
+        return float(np.abs(gray[i].astype(np.float64) - yuv420_to_gray_np(y_np[i], u_np[i], v_np[i])).max())
+
+    threads = min(8, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as pool:
+        vif_jobs = [pool.submit(vif_features_np, ref[0][i], dis[0][i]) for i in range(n)]
+        gray_errs = list(pool.map(gray_err, range(y_np.shape[0])))
+        want = [job.result() for job in vif_jobs]
+    oracle_s = time.perf_counter() - t0
+    print(f"float64 oracle: the references took {oracle_s:.2f} s on {threads} host threads "
+          f"(VIF {n}x{h}x{w}, gray {'x'.join(map(str, y_np.shape))})")
+    worst = {}
+    for route, got in routes.items():
+        for key in VIF_KEYS:
+            for i in range(n):
+                g, wv = float(got[key][i]), want[i][key]
+                if not (np.isfinite(g) and abs(g - wv) <= F64_VIF_RTOL * abs(wv)):
+                    raise AssertionError(f"float64 oracle {route} {key}[{i}]: {g} vs NumPy {wv}, "
+                                         f"beyond rtol {F64_VIF_RTOL}")
+                worst[(route, key)] = max(worst.get((route, key), 0.0), abs(g - wv) / abs(wv))
+    gray_max = max(gray_errs)
+    if not gray_max <= F64_GRAY_ATOL:
+        raise AssertionError(f"float64 oracle gray (kernel 1): max abs err {gray_max} > {F64_GRAY_ATOL}")
+    for route in routes:
+        print(f"float64 oracle: VIF {n}x{h}x{w} ({route}) max rel err, rtol {F64_VIF_RTOL}: "
+              + ", ".join(f"{k} {worst[(route, k)]:.3g}" for k in VIF_KEYS))
+    print(f"float64 oracle: gray {'x'.join(map(str, y_np.shape))} (kernel 1) max abs err "
+          f"{gray_max:.3g}, atol {F64_GRAY_ATOL}; the phase took {time.perf_counter() - t_phase:.2f} s")
 
 
 def frame_batches(planes, chunk: int):
@@ -1710,6 +1788,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_quality_content(dev, first.stop, quality_recs)
     phase_quality_oracle(dev)
+    phase_float64_oracle(dev, y_np, u_np, v_np)
+    torch.cuda.empty_cache()
     launches, series, pooled = phase_quality(dev, ref_np, dis_np)
     for rec, wrapper in zip(quality_recs, ("quality_fused_cuda", "vif_tail_cuda",
                                            "adm_scale_cuda", "adm_tail_cuda")):

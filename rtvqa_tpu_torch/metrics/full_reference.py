@@ -76,7 +76,7 @@ def resolve_precision(quality_precision: Optional[str]) -> None:
     if quality_precision == "fast":
         raise NotImplementedError(
             "quality_precision 'fast' is not ported to rtvqa_tpu_torch: its "
-            "reduced-precision filters were a TPU workaround (ROADMAP.md queue A, item 7)"
+            "reduced-precision filters were a TPU workaround (ROADMAP.md, 'Not ported (deliberate)')"
         )
     raise ValueError(
         f"quality_precision must be 'auto', 'exact' or 'fast', got {quality_precision!r}"
@@ -303,8 +303,8 @@ def analyze_combined(
     if merged:
         raise NotImplementedError(
             "merged=True (one quality+complexity chunk program) is not ported to "
-            "rtvqa_tpu_torch: it waits for a measurement on the card (ROADMAP.md "
-            "queue A, item 7); merged=None or False tap the quality loop"
+            "rtvqa_tpu_torch: it waits for a measurement on the card (ROADMAP.md, "
+            "'Not ported (deliberate)'); merged=None or False tap the quality loop"
         )
     resolve_precision(quality_precision)
     dev = get_device(device)

@@ -89,3 +89,17 @@ def rgb_to_yuv420_np(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarra
         return np.clip(np.rint(x), 0, 255).astype(np.uint8)
 
     return to_u8(y), to_u8(u2), to_u8(v2)
+
+
+def yuv420_to_gray_np(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Float64 NumPy oracle for :func:`yuv420_to_gray` (and the ``gray``
+    CUDA kernel): 2x2 nearest chroma, clip in RGB space, the luma weights."""
+    yf = y.astype(np.float64) - 16.0
+    uf = np.repeat(np.repeat(u.astype(np.float64), 2, -2), 2, -1) - 128.0
+    vf = np.repeat(np.repeat(v.astype(np.float64), 2, -2), 2, -1) - 128.0
+    uf = uf[..., : y.shape[-2], : y.shape[-1]]
+    vf = vf[..., : y.shape[-2], : y.shape[-1]]
+    r = np.clip(_Y_SCALE * yf + _V_R * vf, 0, 255)
+    g = np.clip(_Y_SCALE * yf + _U_G * uf + _V_G * vf, 0, 255)
+    b = np.clip(_Y_SCALE * yf + _U_B * uf, 0, 255)
+    return GRAY_R * r + GRAY_G * g + GRAY_B * b

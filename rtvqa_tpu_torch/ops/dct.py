@@ -73,3 +73,11 @@ def blockwise_dct8x8(x: torch.Tensor) -> torch.Tensor:
     tiles = x.float().reshape(*lead, h // 8, 8, w // 8, 8).transpose(-3, -2)
     d = dct_table(8, x.device)
     return torch.matmul(torch.matmul(d, tiles), d.t())
+
+
+def dct2_np(x: np.ndarray) -> np.ndarray:
+    """Float64 NumPy oracle of :func:`dct2` through the explicit basis
+    matrices, over the trailing two axes."""
+    h, w = x.shape[-2], x.shape[-1]
+    dh, dw = dct_matrix(h), dct_matrix(w)
+    return np.einsum("kh,...hw,lw->...kl", dh, x.astype(np.float64), dw)

@@ -85,3 +85,14 @@ def resize_bilinear_sampled(x: torch.Tensor, out_h: int, out_w: int) -> torch.Te
         rows = x.index_select(-2, torch.from_numpy(idx.copy()).to(x.device))
         x = resize_rows(rows, torch.from_numpy(mat.copy()).to(device=x.device, dtype=x.dtype))
     return resize_bilinear(x, out_h, out_w)
+
+
+def resize_bilinear_np(x: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Float64 NumPy oracle with the same geometry (the float path of
+    cv2.resize): the f32 weight tables widened, rows then columns."""
+    x = x.astype(np.float64)
+    h, w = x.shape[-2], x.shape[-1]
+    rh = _bilinear_matrix(out_h, h).astype(np.float64)
+    rw = _bilinear_matrix(out_w, w).astype(np.float64)
+    y = np.einsum("oh,...hw->...ow", rh, x)
+    return np.einsum("pw,...hw->...hp", rw, y)

@@ -2,7 +2,8 @@
 ``adm_input_cuda``) against the whole kernel (kernel 6,
 ``adm_scale_cuda(..., 0)``) on a u8 1080p pair; the delta is the
 arithmetic and the output writes. The port of ``scripts/probe_adm_stages.py``
-at its stages 0 and 6 (its stages 1-5 are TPU bisection knobs, ROADMAP A7).
+at its stages 0 and 6 (its stages 1-5 are TPU bisection knobs, ROADMAP.md,
+'Not ported (deliberate)').
 
     python -m rtvqa_tpu_torch.probes.adm_stages [--n 64] [--reps 10] [--device cpu]
 

@@ -9,7 +9,8 @@ modes: ``"reflect"`` mirrors without repeating the edge sample (scipy
 'mirror', libvmaf's vif_filter1d), ``"edge"`` repeats it. The border is an
 index gather built with ``np.pad`` on an index range, so it follows numpy's
 semantics for any pad width. Taps are f32 and the sum runs tap by tap in
-f32, in the JAX ops' order.
+f32, in the JAX ops' order. The ``*_np`` functions are float64 oracles on
+dense band matrices, independent of the gather.
 """
 
 from __future__ import annotations
@@ -69,3 +70,53 @@ def filter1d_sep_axis(x: torch.Tensor, taps, axis: int, mode: str = "reflect") -
 def decimate2(x: torch.Tensor) -> torch.Tensor:
     """Keep the even rows and columns of the trailing (H, W) axes."""
     return x[..., ::2, ::2]
+
+
+# --- NumPy oracles (an independent dense band-matrix construction) ---------
+
+
+@functools.lru_cache(maxsize=256)
+def _conv_matrix(length: int, taps: tuple, mode: str) -> np.ndarray:
+    """(length, length) float64 matrix equal to 1D correlation with border
+    handling. ``mode``: "reflect" mirrors without repeating the edge sample
+    (scipy 'mirror' / libvmaf's vif_filter1d), "edge" repeats it."""
+    taps_a = np.asarray(taps, dtype=np.float64)
+    n = len(taps_a)
+    half = n // 2
+    m = np.zeros((length, length), dtype=np.float64)
+    for i in range(length):
+        for t in range(n):
+            j = i + t - half
+            if mode == "reflect":
+                if j < 0:
+                    j = -j
+                elif j >= length:
+                    j = 2 * length - 2 - j
+                j = int(np.clip(j, 0, length - 1))
+            elif mode == "edge":
+                j = int(np.clip(j, 0, length - 1))
+            else:
+                raise ValueError(mode)
+            m[i, j] += taps_a[t]
+    return m
+
+
+def filter1d_sep_np(x: np.ndarray, taps: np.ndarray, mode: str = "reflect") -> np.ndarray:
+    """Float64 oracle of :func:`filter1d_sep`: rows then columns."""
+    h, w = x.shape[-2], x.shape[-1]
+    t = tuple(float(v) for v in np.asarray(taps, dtype=np.float64))
+    mh = _conv_matrix(h, t, mode)
+    mw = _conv_matrix(w, t, mode)
+    y = np.einsum("oh,...hw->...ow", mh, x.astype(np.float64))
+    return np.einsum("pw,...hw->...hp", mw, y)
+
+
+def filter1d_sep_axis_np(x: np.ndarray, taps: np.ndarray, axis: int, mode: str = "reflect") -> np.ndarray:
+    """Float64 oracle of :func:`filter1d_sep_axis` along axis -1 or -2."""
+    if axis not in (-1, -2):
+        raise ValueError(f"axis must be -1 or -2, got {axis}")
+    length = x.shape[axis]
+    t = tuple(float(v) for v in np.asarray(taps, dtype=np.float64))
+    m = _conv_matrix(length, t, mode)
+    eq = "oh,...hw->...ow" if axis == -2 else "pw,...hw->...hp"
+    return np.einsum(eq, m, x.astype(np.float64))

@@ -10,14 +10,16 @@ visual noise sv^2 = sigma2^2 - g*sigma12, clamped in float_vif order, and
                 / sum(log2(1 + sigma1^2 / 2)).
 
 Borders are mirrored (``filters.filter1d_sep``). Every step runs in f32 in
-the JAX ops' order.
+the JAX ops' order. ``vif_features_np`` is the float64 NumPy oracle the
+kernels and the plain version are held to.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from rtvqa_tpu_torch.vmaf.filters import decimate2, filter1d_sep, gaussian_kernel
+from rtvqa_tpu_torch.vmaf.filters import decimate2, filter1d_sep, filter1d_sep_np, gaussian_kernel
 
 _SIGMA_NSQ = 2.0
 _EPS = 1e-10
@@ -88,4 +90,42 @@ def vif_features(ref_y: torch.Tensor, dis_y: torch.Tensor, enhn_gain_limit=None)
             dis = decimate2(filter1d_sep(dis, taps))
         num, den = _vif_scale_stats(ref, dis, taps, enhn_gain_limit)
         out[f"vif_scale{scale}"] = vif_ratio(num, den)
+    return out
+
+
+def vif_features_np(ref_y: np.ndarray, dis_y: np.ndarray) -> dict[str, float]:
+    """Float64 NumPy oracle of :func:`vif_features` on one (H, W) luma
+    pair, built on the dense band matrices of ``filter1d_sep_np`` (classic
+    VIF, no gain limit)."""
+    ref = ref_y.astype(np.float64)
+    dis = dis_y.astype(np.float64)
+    out = {}
+    for scale in range(4):
+        n = 2 ** (4 - scale) + 1
+        taps = gaussian_kernel(n, n / 5.0)
+        if scale > 0:
+            ref = filter1d_sep_np(ref, taps)[::2, ::2]
+            dis = filter1d_sep_np(dis, taps)[::2, ::2]
+        mu1 = filter1d_sep_np(ref, taps)
+        mu2 = filter1d_sep_np(dis, taps)
+        s1 = np.maximum(filter1d_sep_np(ref * ref, taps) - mu1 * mu1, 0)
+        s2 = np.maximum(filter1d_sep_np(dis * dis, taps) - mu2 * mu2, 0)
+        s12 = filter1d_sep_np(ref * dis, taps) - mu1 * mu2
+        g = s12 / (s1 + _EPS)
+        sv = s2 - g * s12
+        m1 = s1 < _EPS
+        g[m1] = 0
+        sv[m1] = s2[m1]
+        s1 = s1.copy()
+        s1[m1] = 0
+        m2 = s2 < _EPS
+        g[m2] = 0
+        sv[m2] = 0
+        mg = g < 0
+        sv[mg] = s2[mg]
+        g[mg] = 0
+        sv = np.maximum(sv, _EPS)
+        num = np.log2(1 + g * g * s1 / (sv + _SIGMA_NSQ)).sum()
+        den = np.log2(1 + s1 / _SIGMA_NSQ).sum()
+        out[f"vif_scale{scale}"] = float(num / max(den, _EPS))
     return out

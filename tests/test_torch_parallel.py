@@ -331,8 +331,8 @@ def test_quality_chunk_step_bit_equal_to_chunk_plain(world4):
     """13 frames over 4 ranks in chunks of 8 at 34x52 (the ragged second
     chunk repeat-padded; odd VIF/ADM decimation chains), has_prev False
     then True with the carry: bit-equal to ``chunk_plain`` on each whole
-    chunk, except vif_scale3 and adm2 within the JAX test's rtol 2e-4 /
-    atol 1e-6; the carry bit-equal on every rank."""
+    chunk, every key, and the carry bit-equal on every rank (values do not
+    follow the shard size)."""
     from rtvqa_tpu_torch.metrics.full_reference import CHUNK_KEYS, chunk_plain
 
     q = QUALITY_SHAPES
@@ -342,11 +342,7 @@ def test_quality_chunk_step_bit_equal_to_chunk_plain(world4):
         for r in world4:
             got, got_carry = r["chunks"][ci]
             for row, key in enumerate(CHUNK_KEYS):
-                if key in ("vif_scale3", "adm2"):
-                    np.testing.assert_allclose(got[row], exp[row].numpy(), rtol=2e-4, atol=1e-6,
-                                               err_msg=f"chunk {ci}: {key}")
-                else:
-                    np.testing.assert_array_equal(got[row], exp[row].numpy(), err_msg=f"chunk {ci}: {key}")
+                np.testing.assert_array_equal(got[row], exp[row].numpy(), err_msg=f"chunk {ci}: {key}")
             np.testing.assert_array_equal(got_carry, carry.numpy())
 
 
@@ -354,8 +350,7 @@ def test_quality_steps_match_jax(world4):
     """The chunk step against JAX's sharded chunk step (impl "xla", 8
     shards) on the awkward case, rtol = atol = 2e-4. The whole-clip step
     (16 x 32x48, zero carry, slot-0 SAD raw) against the port's
-    ``chunk_plain`` on the whole clip (bit-equal but vif_scale3 and adm2, as
-    above) and against JAX's whole-clip step and its single-device programs
+    ``chunk_plain`` on the whole clip (bit-equal, as above) and against JAX's whole-clip step and its single-device programs
     A and B, rtol = atol = 2e-4 except vif_scale3 at rtol 1e-3: there the
     port's single-device body itself differs from JAX's by 4.5e-4 on these
     i.i.d. noise frames (scale 3 of a 32x48 frame is 4x6, whose sums cancel
@@ -384,10 +379,7 @@ def test_quality_steps_match_jax(world4):
     for r in world4:
         for row, key in enumerate(CHUNK_KEYS):
             got = r["whole"][row]
-            if key in ("vif_scale3", "adm2"):
-                np.testing.assert_allclose(got, port[row].numpy(), rtol=2e-4, atol=1e-6, err_msg=key)
-            else:
-                np.testing.assert_array_equal(got, port[row].numpy(), err_msg=key)
+            np.testing.assert_array_equal(got, port[row].numpy(), err_msg=key)
             rtol = 1e-3 if key == "vif_scale3" else 2e-4
             for want in (jax_single[row], jax_sharded[row]):
                 np.testing.assert_allclose(got, want, rtol=rtol, atol=2e-4, err_msg=key)
