@@ -38,7 +38,15 @@ cannot decode there):
   streaming complexity accumulator (``complexity_chunk`` 128), on the
   kernels and on the plain versions; its quality series against the loop
   without the tap, its complexity against
-  ``calculate_average_scene_complexity`` on the same sampled frames;
+  ``calculate_average_scene_complexity`` on the same sampled frames; then
+  at ``frame_interval`` 1 the merged step (``chunk_combined``, the card's
+  default there), whose complexity values come from the staged quality
+  planes: its series bit for bit the loop's without complexity, its
+  complexity against the tap's and the suite's, kernels 1 and 2 launched
+  once per quality chunk, and the walls, device time, busy share, bytes
+  uploaded (counted at ``io/stream.py::upload``; the merged step's must
+  equal the staged pairs': no re-upload) and peak memory of the tap and
+  of the merged step;
 * the wide route at DCI 4K (4096x2160, frames wider than 3840): kernel 4
   (VIF at one scale) against its plain version at each scale of a 14-frame
   chunk, also on flat quadrants and on letterboxed 2.39:1 scope content,
@@ -205,10 +213,40 @@ def peak_gib(fn) -> float:
     return torch.cuda.max_memory_allocated() / 2**30
 
 
-def profile_device(label: str, fn, top: int = 8) -> None:
+def counted_uploads(fn) -> tuple[int, int]:
+    """Run ``fn`` with ``io/stream.py::upload`` wrapped in every module of
+    the port that binds it, counting what it moves host to device: returns
+    (bytes, calls). The prefetch threads upload, so the count takes a lock."""
+    import threading
+
+    from rtvqa_tpu_torch.io import stream
+    from rtvqa_tpu_torch.metrics import complexity_streaming, full_reference
+
+    real, lock, seen = stream.upload, threading.Lock(), [0, 0]
+
+    def counting(a, device):
+        with lock:
+            seen[0] += a.nbytes
+            seen[1] += 1
+        return real(a, device)
+
+    mods = (stream, full_reference, complexity_streaming)
+    for m in mods:
+        m.upload = counting
+    try:
+        fn()
+    finally:
+        for m in mods:
+            m.upload = real
+    return seen[0], seen[1]
+
+
+def profile_device(label: str, fn, top: int = 8, h2d: bool = False) -> dict | None:
     """One run of ``fn`` under ``torch.profiler``: device self time by kernel
     name (the ``top`` largest) and the device's busy share of the run's
-    wall time. Prints "not measured" if the profiler records no device time."""
+    wall time; with ``h2d``, also the host-to-device copies it recorded.
+    Prints "not measured" and returns None if the profiler records no
+    device time; else returns the figures printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -222,13 +260,20 @@ def profile_device(label: str, fn, top: int = 8) -> None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not rows:
         print(f"profile {label}: device time not measured (the profiler recorded none)")
-        return
+        return None
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    out = {"device_ms": busy, "wall_ms": wall_ms, "busy": busy / wall_ms}
+    extra = ""
+    if h2d:
+        out["h2d_ms"] = sum(ms for name, ms, _ in rows if "HtoD" in name)
+        out["h2d_copies"] = sum(count for name, _, count in rows if "HtoD" in name)
+        extra = f"; {out['h2d_copies']} H2D copies recorded, {out['h2d_ms']:.3f} ms"
     print(f"profile {label}: device self time {busy:.3f} ms of {wall_ms:.3f} ms wall "
-          f"(busy {busy / wall_ms:.1%}, under the profiler)")
+          f"(busy {busy / wall_ms:.1%}, under the profiler){extra}")
     for name, ms, count in rows[:top]:
         print(f"  {ms:10.3f} ms  x{count:<5d} {name[:100]}")
+    return out
 
 
 def record(name, source, replaces, err, ms, plain_ms, work, library_ms=None) -> dict:
@@ -914,10 +959,10 @@ def frame_batches(planes, chunk: int):
 
 def run_loop(dev, ref_np, dis_np, chunk: int, impl: str, combined=None):
     """The quality chunk loop (or, with ``combined`` = (interval,
-    complexity_chunk), the combined loop) over prefetched, device-staged
-    batches, as ``analyze_full_reference`` / ``analyze_combined`` run it
-    after opening the streams. Returns (series, pooled dict, complexity or
-    None)."""
+    complexity_chunk, merged), the combined loop: the tap, or the merged
+    step where ``merged``) over prefetched, device-staged batches, as
+    ``analyze_full_reference`` / ``analyze_combined`` run it after opening
+    the streams. Returns (series, pooled dict, complexity or None)."""
     from rtvqa_tpu_torch.io.stream import prefetch, stage_to_device
     from rtvqa_tpu_torch.metrics.complexity_streaming import ComplexityAccumulator
     from rtvqa_tpu_torch.metrics.full_reference import (
@@ -933,10 +978,10 @@ def run_loop(dev, ref_np, dis_np, chunk: int, impl: str, combined=None):
         if combined is None:
             series, n = _quality_chunk_loop(ref_it, dis_it, chunk, None, None, dev, impl)
         else:
-            interval, c_chunk = combined
+            interval, c_chunk, merged = combined
             acc = ComplexityAccumulator(64, 64, 0.8, c_chunk, motion_impl=impl, device=dev)
             series, n, comp = combined_chunk_loop(ref_it, dis_it, chunk, acc, interval, "dis",
-                                                  None, None, dev, impl)
+                                                  None, None, dev, impl, merged)
     finally:
         ref_it.close()
         dis_it.close()
@@ -1031,53 +1076,110 @@ def phase_quality(dev, ref_np, dis_np):
     return launches, s_k, pool_k
 
 
+COMBINED_KERNELS = ("quality_fused_cuda", "vif_tail_cuda", "adm_scale_cuda", "adm_tail_cuda",
+                    "yuv420_to_gray_cuda", "block_match_motion_cuda")
+
+
+def check_complexity_result(label, got, wants: dict) -> tuple[dict, list]:
+    """A ``ComplexityResult`` against others (name -> result) by
+    ``check_complexity``; returns the max rel per metric over them, and the
+    names whose results are equal to ``got`` in every metric."""
+    worst = {}
+    for name, want in wants.items():
+        rel = check_complexity(f"{label} vs {name}", np.array([got.as_tuple()]), np.array([want.as_tuple()]))
+        worst = {k: max(worst.get(k, 0.0), v) for k, v in rel.items()}
+    return worst, [name for name, want in wants.items() if want == got]
+
+
+def check_series_equal(label, series, s_alone) -> None:
+    for key, a in s_alone.items():
+        if not np.array_equal(series[key], a):
+            raise AssertionError(f"{label} series {key} differs from the quality loop without complexity")
+
+
 def phase_combined(dev, ref_np, dis_np, s_alone) -> None:
     """The default config's combined loop over the N pairs at frame_interval
-    10 and 1, complexity_chunk 128, on the kernels and on the plain
-    versions."""
+    10 and 1, complexity_chunk 128, tapping the sampled dis frames, on the
+    kernels and on the plain versions; then at frame_interval 1 the merged
+    step (``analyze_combined``'s default on the card there) on the kernels,
+    beside the tap: walls, device time, H2D bytes and peak memory of both."""
     from rtvqa_tpu_torch.io.video import DecodedClip
-    from rtvqa_tpu_torch.metrics.complexity import METRIC_ORDER, calculate_average_scene_complexity
+    from rtvqa_tpu_torch.metrics.complexity import calculate_average_scene_complexity
     from rtvqa_tpu_torch.metrics.full_reference import auto_chunk
 
     chunk = auto_chunk(W, H)
     dis_y, dis_u, dis_v = dis_np
     ts = np.arange(N) * 1000.0 / FPS
-    for interval in (10, 1):
-        def run(impl, interval=interval):
-            return run_loop(dev, ref_np, dis_np, chunk, impl, combined=(interval, 128))
 
-        run("kernel"), run("plain")  # warm-up
-        (s_k, pool_k, comp_k), t_k, counts = counted_run(quality_kernels(), lambda: run("kernel"))
-        (s_p, pool_p, comp_p), t_p = wall_s(lambda: run("plain"))
+    def run(impl, interval, merged=False):
+        return run_loop(dev, ref_np, dis_np, chunk, impl, combined=(interval, 128, merged))
+
+    for interval in (10, 1):
+        run("kernel", interval), run("plain", interval)  # warm-up
+        (s_k, pool_k, comp_k), t_k, counts = counted_run(quality_kernels(), lambda: run("kernel", interval))
+        (s_p, pool_p, comp_p), t_p = wall_s(lambda: run("plain", interval))
         # The tap leaves the quality series bit for bit as they are without it.
-        for key, a in s_alone.items():
-            if not np.array_equal(s_k[key], a):
-                raise AssertionError(f"combined (interval {interval}) series {key} differs from the "
-                                     "quality loop without the tap")
+        check_series_equal(f"combined (interval {interval})", s_k, s_alone)
         check_quality(f"combined (interval {interval})", N, s_k, pool_k, s_p, pool_p)
         sl = slice(interval - 1, None, interval)  # decode_sampled's 1-based sampling
         n_s = len(ts[sl])
         clip = DecodedClip(y=dis_y[sl], u=dis_u[sl], v=dis_v[sl], timestamps_ms=ts[sl], width=W,
                            height=H, n_frames_total=N, bit_rate=0, avg_fps=FPS / interval)
         suite_k = calculate_average_scene_complexity(clip, 64, 64, device=dev)
-        worst = {}
-        for key in METRIC_ORDER:
-            tol = MOTION_RTOL if key == "motion" else SUITE_RTOL
-            for label, got, want in (("suite", comp_k, suite_k), ("plain", comp_k, comp_p)):
-                a, b = getattr(got, key), getattr(want, key)
-                if not (np.isfinite(a) and abs(a - b) <= tol * max(abs(b), 1e-12)):
-                    raise AssertionError(f"combined (interval {interval}) {key}: kernel path {a} vs {label} {b}")
-                worst[key] = max(worst.get(key, 0.0), abs(a - b) / max(abs(b), 1e-12))
-        check_launches(f"combined (interval {interval})", counts,
-                       {k: 1 for k in ("quality_fused_cuda", "vif_tail_cuda", "adm_scale_cuda",
-                                       "adm_tail_cuda", "yuv420_to_gray_cuda", "block_match_motion_cuda")})
+        worst, _ = check_complexity_result(f"combined (interval {interval})", comp_k,
+                                           {"suite": suite_k, "plain": comp_p})
+        check_launches(f"combined (interval {interval})", counts, {k: 1 for k in COMBINED_KERNELS})
         print(f"combined (interval {interval}): {N}x{H}x{W} pairs, {n_s} sampled dis frames: kernel "
               f"path {t_k:.4f} s, plain path {t_p:.4f} s; launches {counts}; quality series equal to "
               f"the loop without the tap; complexity max rel vs suite/plain {json.dumps(worst)}; "
               f"values {comp_k}")
-        profile_device(f"combined (interval {interval}), kernel path", lambda: run("kernel"), top=12)
+        prof_tap = profile_device(f"combined (interval {interval}), kernel path",
+                                  lambda: run("kernel", interval), top=12, h2d=interval == 1)
         del s_k, s_p
         torch.cuda.empty_cache()
+
+    # frame_interval 1 (the last loop's): the merged step against the tap
+    # (comp_k, t_k, prof_tap) and the suite (suite_k).
+    run("kernel", 1, merged=True)  # warm-up
+    (s_m, _, comp_m), t_m, counts_m = counted_run(quality_kernels(), lambda: run("kernel", 1, merged=True))
+    check_series_equal("combined merged (interval 1)", s_m, s_alone)
+    worst_m, equal_m = check_complexity_result("combined merged (interval 1)", comp_m,
+                                               {"tap": comp_k, "suite": suite_k})
+    n_chunks = N // chunk
+    check_launches("combined merged (interval 1)", counts_m,
+                   {**{k: 1 for k in COMBINED_KERNELS},
+                    "yuv420_to_gray_cuda": n_chunks, "block_match_motion_cuda": n_chunks})
+    walls = {"tap": [t_k], "merged": [t_m]}
+    for _ in range(2):  # in turns, tap first
+        walls["tap"].append(wall_s(lambda: run("kernel", 1))[1])
+        walls["merged"].append(wall_s(lambda: run("kernel", 1, merged=True))[1])
+    uploads, peak = {}, {}
+    for route, merged in (("tap", False), ("merged", True)):
+        peak[route] = peak_gib(lambda: uploads.update({route: counted_uploads(lambda: run("kernel", 1, merged))}))
+    print(f"combined merged (interval 1): {N}x{H}x{W} pairs in {n_chunks} merged steps of {chunk}: "
+          f"launches {counts_m}; quality series equal to the loop without complexity; complexity max "
+          f"rel vs tap/suite {json.dumps(worst_m)}, equal in every metric to: {equal_m or 'neither'}; "
+          f"values {comp_m}")
+    prof_m = profile_device("combined merged (interval 1), kernel path",
+                            lambda: run("kernel", 1, merged=True), top=12, h2d=True)
+    # The merged step uploads the staged pairs and nothing else: no
+    # accumulator re-upload.
+    staged = sum(a.nbytes for a in (*ref_np, *dis_np))
+    if uploads["merged"][0] != staged:
+        raise AssertionError(f"combined merged (interval 1): uploaded {uploads['merged'][0]} B, not the "
+                             f"{staged} B of the staged pairs")
+
+    def fig(prof, key, fmt):
+        return "not measured" if not prof or prof.get(key) is None else format(prof[key], fmt)
+
+    for route, prof in (("tap", prof_tap), ("merged", prof_m)):
+        print(f"combined (interval 1) {route}: walls {', '.join(f'{t:.4f}' for t in walls[route])} s; "
+              f"profiled device {fig(prof, 'device_ms', '.3f')} ms of {fig(prof, 'wall_ms', '.3f')} ms "
+              f"wall (busy {fig(prof, 'busy', '.1%')}), {fig(prof, 'h2d_copies', 'd')} H2D copies recorded in "
+              f"{fig(prof, 'h2d_ms', '.3f')} ms; uploaded {uploads[route][0]} B in {uploads[route][1]} "
+              f"calls (the staged pairs: {staged} B); peak memory {peak[route]:.3f} GiB")
+    del s_m
+    torch.cuda.empty_cache()
 
 
 def chain_work(b, h, w) -> tuple[int, int]:

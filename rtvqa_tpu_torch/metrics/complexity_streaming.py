@@ -61,7 +61,8 @@ class ComplexityAccumulator:
     """Incremental streaming complexity: feed sampled-frame batches with
     ``add``, get the reference 8-tuple from ``finalize``. The combined
     quality+complexity engine (``metrics.full_reference.analyze_combined``)
-    taps its decode loop into one of these."""
+    taps its decode loop into one of these, or, in its merged step, feeds
+    it the values computed on the staged quality planes (``add_packed``)."""
 
     def __init__(
         self,
@@ -136,18 +137,24 @@ class ComplexityAccumulator:
             self._buf = [tuple(np.concatenate([b[i] for b in self._buf]) for i in range(3))]
             self._buf_ts = [np.concatenate(self._buf_ts)]
 
-    def _flush_chunk(self, y, u, v, ts) -> None:
-        n = y.shape[0]
-        planes = [upload(a, self.device) for a in (y, u, v)]
+    def suite(self, height: int, width: int) -> ComplexitySuite:
+        """The stream's suite: built for the first frame size it is asked
+        for, then reused by every chunk, those ``add`` flushes and the
+        merged quality+complexity steps of ``metrics.full_reference``."""
         if self._suite is None:
             self._suite = ComplexitySuite(
-                y.shape[1], y.shape[2], self.resize_height, self.resize_width,
+                height, width, self.resize_height, self.resize_width,
                 block=self.block, radius=self.radius, motion_impl=self.motion_impl,
                 motion_search=self.motion_search,
             ).to(self.device)
+        return self._suite
+
+    def _flush_chunk(self, y, u, v, ts) -> None:
+        n = y.shape[0]
+        planes = [upload(a, self.device) for a in (y, u, v)]
         # Global slot 0 has no predecessor: zeros, whose values finalize drops.
         tail = self._prev_tail or tuple(torch.zeros_like(p[0]) for p in planes)
-        packed = _chunk_values_body(self._suite, *planes, *tail).cpu().numpy()
+        packed = _chunk_values_body(self.suite(y.shape[1], y.shape[2]), *planes, *tail).cpu().numpy()
         self._prev_tail = tuple(p[n - 1].clone() for p in planes)
         for row, k in enumerate(VALUE_KEYS):
             self.values[k].append(packed[row])

@@ -25,7 +25,11 @@ motion2 min rule, per-frame SVR -> mean VMAF) happens at the end.
 ``analyze_combined`` (the default config's route) runs the same loop and
 taps every ``frame_interval``-th decoded frame of one stream into a
 ``complexity_streaming.ComplexityAccumulator``: quality and complexity from
-one decode pass per stream.
+one decode pass per stream. At ``frame_interval`` 1 on the card it runs the
+merged step instead (``chunk_combined``, the counterpart of
+``_program_chunk_combined``): the complexity values of every frame come
+from the planes the quality chunk already staged, the tail frames stay on
+the device, and one packed fetch per chunk feeds the accumulator.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from rtvqa_tpu_torch.io.stream import VideoStream, prefetch, stage_to_device, up
 from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
 from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
 from rtvqa_tpu_torch.kernels.vif import vif_features_cuda, vif_tail_cuda
-from rtvqa_tpu_torch.metrics.complexity_streaming import ComplexityAccumulator
+from rtvqa_tpu_torch.metrics.complexity_streaming import ComplexityAccumulator, _chunk_values_body
 from rtvqa_tpu_torch.metrics.quality import (
     pooled_psnr,
     psnr_frames,
@@ -151,6 +155,27 @@ def chunk_kernels(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=Non
     return torch.stack([out[k].float() for k in CHUNK_KEYS]), fq["blur_carry"]
 
 
+def chunk_combined(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, tail_y, tail_u, tail_v,
+                   vif_egl=None, adm_egl=None, *, suite, complexity_on: str = "dis",
+                   impl: str = "kernel"):
+    """One merged quality+complexity step (counterpart of
+    ``_program_chunk_combined``): the quality chunk (``chunk_kernels``, or
+    ``chunk_plain`` for ``impl`` "plain"), then the complexity values of
+    every frame of the target stream's planes (``complexity_on``: "dis" or
+    "ref") with the carried tail frames prepended, through ``suite`` (the
+    accumulator's ``ComplexitySuite``). The tails of the first chunk are
+    zeros, whose slot-0 values ``ComplexityAccumulator.finalize`` drops.
+    Returns (packed (len(CHUNK_KEYS) + 7, N) f32, blur carry, and the
+    target's last frame as the next tails), all on the planes' device."""
+    body = chunk_kernels if impl == "kernel" else chunk_plain
+    packed_q, blur = body(ry, ru, rv, dy, du, dv, prev_blur, has_prev, vif_egl, adm_egl)
+    cy, cu, cv = (dy, du, dv) if complexity_on == "dis" else (ry, ru, rv)
+    packed_c = _chunk_values_body(suite, cy, cu, cv, tail_y, tail_u, tail_v)
+    # Padded tails repeat the last valid frame, so [-1] is the last valid
+    # one; the copies let the chunk's planes go.
+    return torch.cat([packed_q, packed_c]), blur, cy[-1].clone(), cu[-1].clone(), cv[-1].clone()
+
+
 def auto_chunk(width: int, height: int, requested: Optional[int] = None) -> int:
     """Frames per chunk, scaled to resolution: 64 at 1080p, at most 128,
     even, at least 2."""
@@ -161,7 +186,7 @@ def auto_chunk(width: int, height: int, requested: Optional[int] = None) -> int:
 
 
 def _quality_chunk_loop(ref_it, dis_it, chunk: int, vif_egl, adm_egl, device, impl: str, tap=None,
-                        runner=None):
+                        runner=None, combined=None):
     """Consume lockstep (ref, dis) ``StagedFrameBatch`` iterators; returns
     (per-frame series keyed by ``CHUNK_KEYS``, n_frames). ``impl``:
     "kernel" (``chunk_kernels``) or "plain" (``chunk_plain``); ``runner``,
@@ -169,12 +194,19 @@ def _quality_chunk_loop(ref_it, dis_it, chunk: int, vif_egl, adm_egl, device, im
     sharded loop's scatter and step, ``pipeline/quality_sharded.py``).
     ``tap(ref_host, dis_host, n, offset)``, if given, is called once per
     chunk with the decoded host batches, the chunk's count ``n`` of valid
-    frames and the global index of its first frame."""
+    frames and the global index of its first frame. ``combined``, if given,
+    is ``{"acc": ComplexityAccumulator, "complexity_on": "dis" | "ref"}``:
+    every chunk runs the merged step (``chunk_combined``) and its complexity
+    rows go to ``acc.add_packed``; it excludes ``tap`` and ``runner``."""
+    if combined is not None and (tap is not None or runner is not None):
+        raise ValueError("combined excludes tap and runner: the merged step computes the "
+                         "complexity values itself, on one device")
     body = runner or (chunk_kernels if impl == "kernel" else chunk_plain)
     series: dict[str, list[np.ndarray]] = {k: [] for k in CHUNK_KEYS}
     carry_blur = None
     first = True
     n_frames = 0
+    tails = None  # merged step: the target stream's last frame, on the device
     while True:
         rb = next(ref_it, None)
         db = next(dis_it, None)
@@ -195,10 +227,23 @@ def _quality_chunk_loop(ref_it, dis_it, chunk: int, vif_egl, adm_egl, device, im
             planes = tuple(prep(a) for a in (rhost.y, rhost.u, rhost.v, dhost.y, dhost.u, dhost.v))
         if carry_blur is None:
             carry_blur = torch.zeros(rhost.y.shape[1:], dtype=torch.float32, device=device)
-        packed, carry_blur = body(*planes, carry_blur, not first, vif_egl, adm_egl)
+        if combined is None:
+            packed, carry_blur = body(*planes, carry_blur, not first, vif_egl, adm_egl)
+        else:
+            on = combined["complexity_on"]
+            cplanes, chost = (planes[3:], dhost) if on == "dis" else (planes[:3], rhost)
+            if tails is None:
+                tails = tuple(torch.zeros_like(p[0]) for p in cplanes)
+            suite = combined["acc"].suite(*cplanes[0].shape[1:])
+            packed, carry_blur, *tails = chunk_combined(
+                *planes, carry_blur, not first, *tails, vif_egl, adm_egl,
+                suite=suite, complexity_on=on, impl=impl,
+            )
         if tap is not None:
             tap(rhost, dhost, n, n_frames)
         packed = packed.cpu().numpy()
+        if combined is not None:
+            combined["acc"].add_packed(packed[len(CHUNK_KEYS):, :n], chost.timestamps_ms[:n])
         for row, k in enumerate(CHUNK_KEYS):
             series[k].append(packed[row, :n])
         n_frames += n
@@ -208,15 +253,39 @@ def _quality_chunk_loop(ref_it, dis_it, chunk: int, vif_egl, adm_egl, device, im
     return {k: np.concatenate(v) for k, v in series.items() if v}, n_frames
 
 
+def resolve_merged(merged: Optional[bool], frame_interval: int, device: str | torch.device | None) -> bool:
+    """Whether ``analyze_combined`` runs the merged step. None means on at
+    ``frame_interval`` 1 on the card (the JAX package's policy, with the
+    card for its accelerator); True needs ``frame_interval`` 1, where every
+    frame feeds both metrics. The ``frame_interval`` check comes before
+    ``device`` is resolved."""
+    if merged and frame_interval != 1:
+        raise ValueError(
+            "merged=True requires frame_interval=1 (every frame feeds the "
+            f"combined chunk program); got frame_interval={frame_interval}"
+        )
+    if merged is None:
+        return frame_interval == 1 and get_device(device).type == "cuda"
+    return bool(merged)
+
+
 def combined_chunk_loop(ref_it, dis_it, chunk: int, acc: ComplexityAccumulator,
                         frame_interval: int, complexity_on: str, vif_egl, adm_egl,
-                        device, impl: str):
+                        device, impl: str, merged: Optional[bool] = False):
     """The combined engine after the streams are open: the quality chunk
     loop over lockstep (ref, dis) ``StagedFrameBatch`` iterators, tapping
     the sampled frames of the complexity target (``complexity_on``: "dis",
     or "ref" for ``analyze_original``) into ``acc``. Sampling is 1-based, as
     ``decode_sampled``'s: global frames k-1, 2k-1, ... for
-    ``frame_interval`` k. Returns (series, n_frames, ComplexityResult)."""
+    ``frame_interval`` k. ``merged`` (``resolve_merged``) runs the merged
+    step on every chunk in place of the tap. Returns (series, n_frames,
+    ComplexityResult)."""
+    if resolve_merged(merged, frame_interval, device):
+        series, n_frames = _quality_chunk_loop(
+            ref_it, dis_it, chunk, vif_egl, adm_egl, device, impl,
+            combined={"acc": acc, "complexity_on": complexity_on},
+        )
+        return series, n_frames, acc.finalize()
 
     def tap(rhost, dhost, n, offset):
         cb = dhost if complexity_on == "dis" else rhost
@@ -292,21 +361,14 @@ def analyze_combined(
     the quality loop into a ``ComplexityAccumulator`` of
     ``complexity_chunk`` frames. Returns ``(quality_dict, ComplexityResult)``.
 
-    ``merged``: None or False take the tap. True (the JAX package's merged
-    quality+complexity chunk program) needs ``frame_interval`` 1 and is not
-    ported."""
-    if merged and frame_interval != 1:
-        raise ValueError(
-            "merged=True requires frame_interval=1 (every frame feeds the "
-            f"combined chunk program); got frame_interval={frame_interval}"
-        )
-    if merged:
-        raise NotImplementedError(
-            "merged=True (one quality+complexity chunk program) is not ported to "
-            "rtvqa_tpu_torch: it waits for a measurement on the card (ROADMAP.md, "
-            "'Not ported (deliberate)'); merged=None or False tap the quality loop"
-        )
+    ``merged``: True runs the merged step (``chunk_combined``: the
+    complexity values of every frame from the planes the quality chunk
+    staged, one fetch per chunk) in place of the tap, and needs
+    ``frame_interval`` 1; on the CPU it runs on the plain versions. None
+    (the default) means on at ``frame_interval`` 1 on the card and the tap
+    elsewhere (``resolve_merged``); False always taps."""
     resolve_precision(quality_precision)
+    merged = resolve_merged(merged, frame_interval, device)
     dev = get_device(device)
     impl = "kernel" if dev.type == "cuda" else "plain"
     model = load_model(vmaf_model_path) if vmaf_model_path else None
@@ -319,7 +381,7 @@ def analyze_combined(
         s, n_frames, comp = combined_chunk_loop(
             ref_it, dis_it, chunk, acc, frame_interval, complexity_on,
             model.vif_enhn_gain_limit if model else None,
-            model.adm_enhn_gain_limit if model else None, dev, impl,
+            model.adm_enhn_gain_limit if model else None, dev, impl, merged,
         )
     finally:
         ref_it.close()

@@ -17,11 +17,22 @@ block/2 and radius/2, magnitudes scaled by 2. ``block_match_motion_pyramid``
 takes it pairwise and ``block_match_motion_pyramid_series`` over the
 consecutive pairs of one series (pooled once); the pooling is per frame, so
 the two give the same values on the same pairs.
+``block_match_motion_pyramid2_series`` is the JAX package's two-level
+experiment, a measured dead end that no default path runs.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _edge_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Replicate-pad the last two dimensions by ``pad`` (any ``pad``, also
+    one larger than the frame)."""
+    h, w = x.shape[-2], x.shape[-1]
+    rows = torch.arange(-pad, h + pad, device=x.device).clamp(0, h - 1)
+    cols = torch.arange(-pad, w + pad, device=x.device).clamp(0, w - 1)
+    return x.index_select(-2, rows).index_select(-1, cols)
 
 
 def block_match_index(
@@ -34,9 +45,7 @@ def block_match_index(
     curr = curr_gray[..., :hb, :wb].float()
     prev = prev_gray[..., :hb, :wb].float()
     dev = curr.device
-    rows = torch.arange(-radius, hb + radius, device=dev).clamp(0, hb - 1)
-    cols = torch.arange(-radius, wb + radius, device=dev).clamp(0, wb - 1)
-    prev_p = prev.index_select(-2, rows).index_select(-1, cols)
+    prev_p = _edge_pad(prev, radius)
 
     lead = curr.shape[:-2]
     nby, nbx = hb // block, wb // block
@@ -142,6 +151,57 @@ def block_match_motion_pyramid_series(
     if impl != "plain":
         raise ValueError(f"impl must be 'plain' or 'kernel', got {impl!r}")
     return 2.0 * block_match_motion(gh[:-1], gh[1:], block=bp, radius=rp)
+
+
+def block_match_motion_pyramid2_series(
+    gray_series: torch.Tensor, block: int = 16, radius: int = 8
+) -> torch.Tensor:
+    """Two-level pyramid motion over consecutive pairs of one series:
+    (N, H, W) -> (N-1,) f32. An exhaustive search at quarter resolution
+    (block/4, radius/4), then a ±1 refinement at half resolution around each
+    block's coarse vector, on plain ops; the refinement's previous image is
+    a 25-way masked select of the coarse-shifted slices of the edge-padded
+    half-resolution frame.
+
+    **Measured dead end, not production.** A half-quarter-pixel true shift
+    makes the quarter-resolution SAD landscape ambiguous: the small coarse
+    blocks take their argmin nearly at random within the coarse radius, and
+    the ±1 refinement cannot recover from a wrong coarse vector, so the
+    metric drifts ~1.7x from the truth where the single-level pyramid is
+    exact (the JAX package's
+    ``tests/test_complexity_ops.py::test_pyramid2_documented_failure_mode``;
+    here ``tests/test_torch_api_ops.py``). No default path runs it; it is
+    the record of the experiment, as in the JAX package."""
+    bp = max(block // 2, 1)
+    rp = max(radius // 2, 1)
+    bq = max(bp // 2, 1)
+    rq = max(rp // 2, 1)
+    gh = down2_mean(gray_series)  # half resolution
+    gq = down2_mean(gh)           # quarter resolution
+    cdy, cdx = block_match_field(gq[:-1], gq[1:], block=bq, radius=rq)
+
+    # Half resolution cropped to the block grid the coarse field describes.
+    nby, nbx = cdy.shape[-2], cdy.shape[-1]
+    hb, wb = nby * bp, nbx * bp
+    prev_h = gh[:-1, :hb, :wb]
+    curr_h = gh[1:, :hb, :wb]
+    pad_r = 2 * rq + 1  # the largest coarse shift, 2 rq, plus the refinement's 1
+    prev_p = _edge_pad(prev_h, pad_r)
+    sel = torch.zeros_like(prev_h)
+    for cy in range(-rq, rq + 1):
+        for cx in range(-rq, rq + 1):
+            m = (cdy == cy) & (cdx == cx)  # (N-1, nby, nbx)
+            mpix = m.repeat_interleave(bp, -2).repeat_interleave(bp, -1)
+            oy, ox = pad_r + 2 * cy, pad_r + 2 * cx
+            sel = sel + torch.where(mpix, prev_p[:, oy : oy + hb, ox : ox + wb], 0.0)
+
+    ody, odx = block_match_field(sel, curr_h, block=bp, radius=1)
+    fdy = 2.0 * cdy + ody
+    fdx = 2.0 * cdx + odx
+    # The mean sums in float64, as ``mean_magnitude`` does: equal fields give
+    # equal values whatever order the blocks are summed in.
+    mag = torch.sqrt(fdy * fdy + fdx * fdx)
+    return 2.0 * mag.double().mean(dim=(-2, -1)).float()
 
 
 def fps_variation(

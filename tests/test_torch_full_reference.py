@@ -10,7 +10,9 @@
 * the wide route (w > 3840: plain program A, VIF through kernel 4's
   wrapper, ADM through the scale chain) against ``chunk_plain``;
 * the combined engine (``analyze_combined``) and the streaming complexity
-  accumulator against the JAX package's on an encoded 64x96 clip;
+  accumulator against the JAX package's on an encoded 64x96 clip; the
+  merged step (``merged=True``) against the JAX package's merged program
+  and against the port's own tap, and the ``merged=None`` policy;
 * pooling, precision and chunk-size rules;
 * the frozen 1080p real-content goldens.
 
@@ -208,13 +210,81 @@ def test_analyze_combined_matches_jax(small_pair, interval, on):
         np.testing.assert_array_equal(tq["per_frame"][key], w, err_msg=key)
 
 
+MERGED_KW = dict(frame_interval=1, resize_width=32, resize_height=32, complexity_chunk=4, chunk=4)
+
+
+@pytest.mark.parametrize("on", ["dis", "ref"])
+def test_analyze_combined_merged_matches_jax(small_pair, on):
+    """The merged step on the CPU against the JAX package's merged program
+    (``_program_chunk_combined`` on its CPU backend); chunk 4 over 13 frames
+    runs the ragged tail and the cross-chunk tail carry."""
+    ref, dis, n = small_pair
+    jq, jc = jfr.analyze_combined(ref, dis, merged=True, complexity_on=on, **MERGED_KW)
+    tq, tc = tfr.analyze_combined(ref, dis, merged=True, complexity_on=on, **MERGED_KW, device="cpu")
+    assert tq["n_frames"] == jq["n_frames"] == n
+    for key in ("psnr", "ssim", "vmaf"):
+        assert tq[key] == pytest.approx(jq[key], rel=1e-5), key
+    for key, w in jq["per_frame"].items():
+        tol = 1e-4 if key in VQ_KEYS + ("vmaf",) else 1e-5
+        np.testing.assert_allclose(tq["per_frame"][key], np.asarray(w), rtol=tol, atol=1e-6, err_msg=key)
+    check_complexity(tc, jc)
+
+
+@pytest.mark.parametrize("on", ["dis", "ref"])
+def test_analyze_combined_merged_matches_tap(small_pair, on):
+    """The port's merged step against its own tap at frame_interval 1: the
+    quality series bit for bit, the complexity 8-tuple equal (the values of
+    a frame do not follow the chunk they are computed in)."""
+    ref, dis, _ = small_pair
+    tq, tc = tfr.analyze_combined(ref, dis, merged=False, complexity_on=on, **MERGED_KW, device="cpu")
+    mq, mc = tfr.analyze_combined(ref, dis, merged=True, complexity_on=on, **MERGED_KW, device="cpu")
+    for key, w in tq["per_frame"].items():
+        np.testing.assert_array_equal(mq["per_frame"][key], w, err_msg=key)
+    assert mc == tc
+
+
 def test_analyze_combined_merged_refusals(small_pair):
     ref, dis, _ = small_pair
     for mod in (jfr, tfr):
         with pytest.raises(ValueError, match="frame_interval=1"):
             mod.analyze_combined(ref, dis, frame_interval=3, merged=True)
-    with pytest.raises(NotImplementedError, match="merged=True"):
-        tfr.analyze_combined(ref, dis, frame_interval=1, merged=True, device="cpu")
+
+
+def test_merged_policy(small_pair, monkeypatch):
+    """merged=None: the tap on the CPU; on the card the merged step at
+    frame_interval 1 and the tap above it (checked through the policy
+    function, which asks ``get_device`` whether there is a card)."""
+    ref, dis, _ = small_pair
+    cpu = torch.device("cpu")
+    assert tfr.resolve_merged(None, 1, cpu) is False
+    assert tfr.resolve_merged(True, 1, cpu) is True
+    assert tfr.resolve_merged(False, 1, "cpu") is False
+    calls = []
+    real_loop = tfr._quality_chunk_loop
+
+    def spy(*args, **kw):
+        calls.append(kw.get("combined"))
+        return real_loop(*args, **kw)
+
+    monkeypatch.setattr(tfr, "_quality_chunk_loop", spy)
+    tfr.analyze_combined(ref, dis, **MERGED_KW, device="cpu")
+    tfr.analyze_combined(ref, dis, **MERGED_KW, merged=True, device="cpu")
+    assert calls[0] is None and calls[1]["complexity_on"] == "dis"  # the tap, then the merged step
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tfr.resolve_merged(None, 1, "cuda") is True
+    assert tfr.resolve_merged(None, 1, None) is True
+    assert tfr.resolve_merged(None, 10, "cuda") is False
+    with pytest.raises(ValueError, match="frame_interval=1"):
+        tfr.resolve_merged(True, 10, "cuda")
+
+
+def test_chunk_loop_combined_excludes_tap_and_runner():
+    acc = tcs.ComplexityAccumulator(32, 32, chunk=4, device="cpu")
+    combined = {"acc": acc, "complexity_on": "dis"}
+    for extra in (dict(tap=lambda *a: None), dict(runner=tfr.chunk_plain)):
+        with pytest.raises(ValueError, match="excludes tap and runner"):
+            tfr._quality_chunk_loop(iter(()), iter(()), 4, None, None, torch.device("cpu"), "plain",
+                                    combined=combined, **extra)
 
 
 @pytest.mark.parametrize("cchunk,schunk", [(5, 3), (128, 32)])
