@@ -16,12 +16,19 @@ the JAX CLI shards when it sees more than one device.
 single-clip path runs (``--sharded`` changes nothing there, as in the JAX
 CLI), on rank 0 only under torchrun. ``--trace DIR`` wraps the run in a
 ``torch.profiler`` trace written to DIR as a Chrome trace JSON
-(``obs/profiler.py::device_trace``).
+(``obs/profiler.py::device_trace``), in which the program's spans are
+``rtvqa.*`` ranges, and writes every thread's span records beside it
+(``rtvqa_spans.<pid>.json``). ``--trace`` and ``--json`` make the run's
+``StageTimer`` the active tracer; ``--json``'s ``"profile"`` then carries
+the seconds and calls of each span name (``"spans"``) and the counters
+(``"counters"``: bytes and copies to the device, staged chunks, padded
+frames, suite builds).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -44,7 +51,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="Run a sweep as the device-parallel sweep (frames sharded over "
                         "the ranks). Default: sharded under torchrun with more than one rank.")
     parser.add_argument("--trace", type=str, default=None, metavar="DIR",
-                        help="Write a torch.profiler trace of the run (Chrome trace JSON) into DIR.")
+                        help="Write a torch.profiler trace of the run (Chrome trace JSON) and the "
+                        "program's span records into DIR.")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="Where the metrics run (default: cuda; cpu only when asked).")
     parser.add_argument("--json", action="store_true",
@@ -58,8 +66,9 @@ def main(argv: list[str] | None = None) -> int:
     logger = get_logger("rtvqa_tpu_torch.cli")
     config = load_config(args.config_file)
     timer = StageTimer()
+    tracing = timer.active() if args.trace or args.json else contextlib.nullcontext()
     try:
-        with device_trace(args.trace, args.device):
+        with tracing, device_trace(args.trace, args.device):
             if args.sweep is not None:
                 from rtvqa_tpu_torch.pipeline.sweep import (
                     DEFAULT_CRF_LADDER,
@@ -80,6 +89,8 @@ def main(argv: list[str] | None = None) -> int:
                 result = process_video_and_extract_metrics(
                     args.input_video, config, timer=timer, device=args.device
                 )
+        if args.trace:
+            timer.write(os.path.join(args.trace, f"rtvqa_spans.{os.getpid()}.json"))
         if timer.totals:
             timer.log_summary()
         if args.json and rank == 0:

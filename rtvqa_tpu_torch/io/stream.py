@@ -6,10 +6,16 @@ background prefetcher, and device staging (the port's own copy of
 decoder; ``prefetch`` runs any iterator one batch ahead on a thread, so host
 decode overlaps device compute; ``stage_to_device`` uploads full chunks on
 that thread through pinned host buffers with ``non_blocking=True``.
+
+Spans and counters (``obs/profiler.py``): ``stage`` per staged chunk and
+``staged_chunks`` on the producer thread, ``wait`` in the consumer's
+``next()`` and ``close`` when it lets go, ``h2d_bytes`` and ``h2d_copies``
+at every ``upload``.
 """
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
 import dataclasses
 import queue
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from rtvqa_tpu_torch.io import video as vio
+from rtvqa_tpu_torch.obs.profiler import count, span
 
 
 @dataclasses.dataclass
@@ -103,7 +110,9 @@ def prefetch(iterator: Iterator, depth: int = 1) -> Iterator:
     If the consumer abandons the generator (``break``, exception, garbage
     collection), the producer is cancelled and the iterator's ``close()`` is
     called, so decoder contexts are released at once. An exception in the
-    producer is raised in the consumer.
+    producer is raised in the consumer. The producer runs in a copy of the
+    context of the consumer's first ``next()``, so its spans belong to the
+    span (and clip) the consumer was in.
     """
     q: queue.Queue = queue.Queue(maxsize=depth)
     err: list[BaseException] = []
@@ -134,23 +143,25 @@ def prefetch(iterator: Iterator, depth: int = 1) -> Iterator:
                     if cancelled.is_set():
                         break
 
-    t = threading.Thread(target=worker, daemon=True)
+    t = threading.Thread(target=contextvars.copy_context().run, args=(worker,), daemon=True)
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("wait"):
+                item = q.get()
             if item is _SENTINEL:
                 if err:
                     raise err[0]
                 return
             yield item
     finally:
-        cancelled.set()
-        try:  # free one slot so a producer blocked in q.put sees the flag
-            q.get_nowait()
-        except queue.Empty:
-            pass
-        t.join(timeout=5.0)
+        with span("close"):
+            cancelled.set()
+            try:  # free one slot so a producer blocked in q.put sees the flag
+                q.get_nowait()
+            except queue.Empty:
+                pass
+            t.join(timeout=5.0)
 
 
 def stream_batches(
@@ -183,6 +194,8 @@ def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     and the caching host allocator keeps the pinned buffer until the copy
     has run."""
     t = torch.from_numpy(np.ascontiguousarray(a))
+    count("h2d_bytes", t.nbytes)
+    count("h2d_copies")
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
@@ -200,7 +213,10 @@ def stage_to_device(
     try:
         for fb in iterator:
             if chunk is not None and fb.y.shape[0] == chunk:
-                yield StagedFrameBatch(fb, *(upload(a, device) for a in (fb.y, fb.u, fb.v)))
+                with span("stage"):
+                    planes = tuple(upload(a, device) for a in (fb.y, fb.u, fb.v))
+                count("staged_chunks")
+                yield StagedFrameBatch(fb, *planes)
             else:
                 yield StagedFrameBatch(fb)
     finally:

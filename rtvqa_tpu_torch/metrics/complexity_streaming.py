@@ -13,6 +13,11 @@ g-1; framerate variation comes from the host timestamps.
 
 The JAX accumulator pads a ragged chunk to its static size; here no padding
 is needed, since every value depends only on its frame and the one before.
+
+Spans and counters (``obs/profiler.py``): ``complexity`` around ``add``
+and ``finalize``; ``suite_build`` (and ``suite_builds``) where the suite
+is built, its tables' ``.to()`` counted in ``h2d_bytes`` and
+``h2d_copies``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from rtvqa_tpu_torch.device import get_device
 from rtvqa_tpu_torch.io.stream import VideoStream, prefetch, upload
 from rtvqa_tpu_torch.metrics.complexity import METRIC_ORDER, ComplexityResult, ComplexitySuite
+from rtvqa_tpu_torch.obs.profiler import count, span
 
 # Row order of the seven device-computed values (framerate variation is
 # computed on the host from timestamps).
@@ -98,24 +104,25 @@ class ComplexityAccumulator:
 
     def add(self, y: np.ndarray, u: np.ndarray, v: np.ndarray, ts: np.ndarray) -> None:
         """Feed a batch of *sampled* frames ((n,H,W), (n,h,w), (n,h,w), (n,))."""
-        if y.shape[0] == 0:
-            return
-        self._buf.append((y, u, v))
-        self._buf_ts.append(np.asarray(ts, np.float64))
-        self._buf_n += y.shape[0]
-        if self._buf_n >= self.chunk:
-            # Concatenate once, then flush chunk-sized views.
-            self._consolidate()
-            ys, us, vs = self._buf[0]
-            ts_all = self._buf_ts[0]
-            off = 0
-            while self._buf_n - off >= self.chunk:
-                sl = slice(off, off + self.chunk)
-                self._flush_chunk(ys[sl], us[sl], vs[sl], ts_all[sl])
-                off += self.chunk
-            self._buf = [(ys[off:], us[off:], vs[off:])] if off < self._buf_n else []
-            self._buf_ts = [ts_all[off:]] if off < self._buf_n else []
-            self._buf_n -= off
+        with span("complexity"):
+            if y.shape[0] == 0:
+                return
+            self._buf.append((y, u, v))
+            self._buf_ts.append(np.asarray(ts, np.float64))
+            self._buf_n += y.shape[0]
+            if self._buf_n >= self.chunk:
+                # Concatenate once, then flush chunk-sized views.
+                self._consolidate()
+                ys, us, vs = self._buf[0]
+                ts_all = self._buf_ts[0]
+                off = 0
+                while self._buf_n - off >= self.chunk:
+                    sl = slice(off, off + self.chunk)
+                    self._flush_chunk(ys[sl], us[sl], vs[sl], ts_all[sl])
+                    off += self.chunk
+                self._buf = [(ys[off:], us[off:], vs[off:])] if off < self._buf_n else []
+                self._buf_ts = [ts_all[off:]] if off < self._buf_n else []
+                self._buf_n -= off
 
     def add_packed(self, packed: np.ndarray, ts: np.ndarray) -> None:
         """Feed pre-computed per-frame values for ``len(ts)`` frames:
@@ -142,11 +149,17 @@ class ComplexityAccumulator:
         for, then reused by every chunk, those ``add`` flushes and the
         merged quality+complexity steps of ``metrics.full_reference``."""
         if self._suite is None:
-            self._suite = ComplexitySuite(
-                height, width, self.resize_height, self.resize_width,
-                block=self.block, radius=self.radius, motion_impl=self.motion_impl,
-                motion_search=self.motion_search,
-            ).to(self.device)
+            with span("suite_build"):
+                suite = ComplexitySuite(
+                    height, width, self.resize_height, self.resize_width,
+                    block=self.block, radius=self.radius, motion_impl=self.motion_impl,
+                    motion_search=self.motion_search,
+                )
+                tables = list(suite.buffers())
+                count("h2d_bytes", sum(t.nbytes for t in tables))
+                count("h2d_copies", len(tables))
+                count("suite_builds")
+                self._suite = suite.to(self.device)
         return self._suite
 
     def _flush_chunk(self, y, u, v, ts) -> None:
@@ -162,25 +175,26 @@ class ComplexityAccumulator:
         self.n_total += n
 
     def finalize(self) -> ComplexityResult:
-        if self._buf_n:
-            self._consolidate()
-            ys, us, vs = self._buf[0]
-            self._flush_chunk(ys, us, vs, self._buf_ts[0])
-            self._buf, self._buf_ts, self._buf_n = [], [], 0
-        if self.n_total < 2:
-            return ComplexityResult(**{k: 0.0 for k in METRIC_ORDER})
+        with span("complexity"):
+            if self._buf_n:
+                self._consolidate()
+                ys, us, vs = self._buf[0]
+                self._flush_chunk(ys, us, vs, self._buf_ts[0])
+                self._buf, self._buf_ts, self._buf_n = [], [], 0
+            if self.n_total < 2:
+                return ComplexityResult(**{k: 0.0 for k in METRIC_ORDER})
 
-        series = {k: np.concatenate(v) for k, v in self.values.items()}
-        ts = np.concatenate(self.timestamps)
-        a = self.alpha
-        out = {}
-        for k in ("motion", "dct", "histogram", "edge", "orb", "color"):
-            out[k] = _ewm_mean_host(series[k][1:], a)  # slots g = 1..N-1
-        out["temporal_dct"] = _ewm_mean_host(series["temporal_dct"][2:], a)
-        dt = np.diff(ts) / 1000.0
-        fps = np.where(dt > 0, 1.0 / np.maximum(dt, 1e-9), 0.0)
-        out["framerate"] = _ewm_mean_host(fps, a)
-        return ComplexityResult(**out)
+            series = {k: np.concatenate(v) for k, v in self.values.items()}
+            ts = np.concatenate(self.timestamps)
+            a = self.alpha
+            out = {}
+            for k in ("motion", "dct", "histogram", "edge", "orb", "color"):
+                out[k] = _ewm_mean_host(series[k][1:], a)  # slots g = 1..N-1
+            out["temporal_dct"] = _ewm_mean_host(series["temporal_dct"][2:], a)
+            dt = np.diff(ts) / 1000.0
+            fps = np.where(dt > 0, 1.0 / np.maximum(dt, 1e-9), 0.0)
+            out["framerate"] = _ewm_mean_host(fps, a)
+            return ComplexityResult(**out)
 
 
 def calculate_average_scene_complexity_streaming(

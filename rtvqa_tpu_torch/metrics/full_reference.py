@@ -30,6 +30,12 @@ merged step instead (``chunk_combined``, the counterpart of
 ``_program_chunk_combined``): the complexity values of every frame come
 from the planes the quality chunk already staged, the tail frames stay on
 the device, and one packed fetch per chunk feeds the accumulator.
+
+Spans and counters (``obs/profiler.py``): ``clip`` around a clip's loop,
+``quality`` around each chunk's launches, ``complexity`` around the merged
+step's values, ``tap`` around the tap, ``pad`` (and ``padded_frames``)
+where a ragged tail is padded and uploaded, ``fetch`` where the host waits
+for a chunk's series, and ``pool``.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from rtvqa_tpu_torch.metrics.quality import (
     ssim_frames,
 )
 from rtvqa_tpu_torch.obs.logging import get_logger
+from rtvqa_tpu_torch.obs.profiler import clip, count, span
 from rtvqa_tpu_torch.vmaf.adm import adm_features, adm_finalize
 from rtvqa_tpu_torch.vmaf.model import builtin_model, load_model
 from rtvqa_tpu_torch.vmaf.motion import motion_sads
@@ -168,9 +175,11 @@ def chunk_combined(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, tail_y, ta
     Returns (packed (len(CHUNK_KEYS) + 7, N) f32, blur carry, and the
     target's last frame as the next tails), all on the planes' device."""
     body = chunk_kernels if impl == "kernel" else chunk_plain
-    packed_q, blur = body(ry, ru, rv, dy, du, dv, prev_blur, has_prev, vif_egl, adm_egl)
+    with span("quality"):
+        packed_q, blur = body(ry, ru, rv, dy, du, dv, prev_blur, has_prev, vif_egl, adm_egl)
     cy, cu, cv = (dy, du, dv) if complexity_on == "dis" else (ry, ru, rv)
-    packed_c = _chunk_values_body(suite, cy, cu, cv, tail_y, tail_u, tail_v)
+    with span("complexity"):
+        packed_c = _chunk_values_body(suite, cy, cu, cv, tail_y, tail_u, tail_v)
     # Padded tails repeat the last valid frame, so [-1] is the last valid
     # one; the copies let the chunk's planes go.
     return torch.cat([packed_q, packed_c]), blur, cy[-1].clone(), cu[-1].clone(), cv[-1].clone()
@@ -224,11 +233,14 @@ def _quality_chunk_loop(ref_it, dis_it, chunk: int, vif_egl, adm_egl, device, im
                 a = a[:n]
                 return upload(np.concatenate([a, np.repeat(a[-1:], pad, 0)], 0), device)
 
-            planes = tuple(prep(a) for a in (rhost.y, rhost.u, rhost.v, dhost.y, dhost.u, dhost.v))
+            with span("pad"):
+                planes = tuple(prep(a) for a in (rhost.y, rhost.u, rhost.v, dhost.y, dhost.u, dhost.v))
+            count("padded_frames", pad)
         if carry_blur is None:
             carry_blur = torch.zeros(rhost.y.shape[1:], dtype=torch.float32, device=device)
         if combined is None:
-            packed, carry_blur = body(*planes, carry_blur, not first, vif_egl, adm_egl)
+            with span("quality"):
+                packed, carry_blur = body(*planes, carry_blur, not first, vif_egl, adm_egl)
         else:
             on = combined["complexity_on"]
             cplanes, chost = (planes[3:], dhost) if on == "dis" else (planes[:3], rhost)
@@ -240,8 +252,10 @@ def _quality_chunk_loop(ref_it, dis_it, chunk: int, vif_egl, adm_egl, device, im
                 suite=suite, complexity_on=on, impl=impl,
             )
         if tap is not None:
-            tap(rhost, dhost, n, n_frames)
-        packed = packed.cpu().numpy()
+            with span("tap"):
+                tap(rhost, dhost, n, n_frames)
+        with span("fetch"):
+            packed = packed.cpu().numpy()
         if combined is not None:
             combined["acc"].add_packed(packed[len(CHUNK_KEYS):, :n], chost.timestamps_ms[:n])
         for row, k in enumerate(CHUNK_KEYS):
@@ -280,21 +294,21 @@ def combined_chunk_loop(ref_it, dis_it, chunk: int, acc: ComplexityAccumulator,
     ``frame_interval`` k. ``merged`` (``resolve_merged``) runs the merged
     step on every chunk in place of the tap. Returns (series, n_frames,
     ComplexityResult)."""
-    if resolve_merged(merged, frame_interval, device):
-        series, n_frames = _quality_chunk_loop(
-            ref_it, dis_it, chunk, vif_egl, adm_egl, device, impl,
-            combined={"acc": acc, "complexity_on": complexity_on},
-        )
-        return series, n_frames, acc.finalize()
-
     def tap(rhost, dhost, n, offset):
         cb = dhost if complexity_on == "dis" else rhost
         keep = (np.arange(offset, offset + n) + 1) % frame_interval == 0
         if keep.any():
             acc.add(cb.y[:n][keep], cb.u[:n][keep], cb.v[:n][keep], cb.timestamps_ms[:n][keep])
 
-    series, n_frames = _quality_chunk_loop(ref_it, dis_it, chunk, vif_egl, adm_egl, device, impl, tap)
-    return series, n_frames, acc.finalize()
+    with clip():
+        if resolve_merged(merged, frame_interval, device):
+            series, n_frames = _quality_chunk_loop(
+                ref_it, dis_it, chunk, vif_egl, adm_egl, device, impl,
+                combined={"acc": acc, "complexity_on": complexity_on},
+            )
+        else:
+            series, n_frames = _quality_chunk_loop(ref_it, dis_it, chunk, vif_egl, adm_egl, device, impl, tap)
+        return series, n_frames, acc.finalize()
 
 
 def _open_pair(ref_path: str, dis_path: str, chunk: Optional[int], dev: torch.device):
@@ -328,7 +342,8 @@ def analyze_full_reference(
     adm_egl = model.adm_enhn_gain_limit if model else None
     chunk, ref_it, dis_it = _open_pair(ref_path, dis_path, chunk, dev)
     try:
-        s, n_frames = _quality_chunk_loop(ref_it, dis_it, chunk, vif_egl, adm_egl, dev, impl)
+        with clip():
+            s, n_frames = _quality_chunk_loop(ref_it, dis_it, chunk, vif_egl, adm_egl, dev, impl)
     finally:
         ref_it.close()
         dis_it.close()
@@ -400,39 +415,40 @@ def pool_full_reference(
     """Pool per-frame series (keys ``CHUNK_KEYS``, each (n_frames,)) into
     the final metrics dict: PSNR of the mean MSE, mean SSIM, motion2 =
     min(sad[t], sad[t+1]) with frame 0 at 0, and the per-frame VMAF mean."""
-    psnr = float(pooled_psnr(torch.from_numpy(np.asarray(s["mse_avg"], np.float32))))
-    ssim = float(np.mean(s["ssim_all"]))
-    sad = s["motion_sad"]
-    fwd = np.concatenate([sad[1:], [np.inf]])
-    motion2 = np.minimum(sad, fwd)
-    motion2[0] = 0.0
-    feats = {
-        "adm2": s["adm2"],
-        "motion2": motion2.astype(np.float32),
-        "vif_scale0": s["vif_scale0"],
-        "vif_scale1": s["vif_scale1"],
-        "vif_scale2": s["vif_scale2"],
-        "vif_scale3": s["vif_scale3"],
-    }
-    vmaf_is_fallback = model is None and not vmaf_model_path
-    if model is None and vmaf_model_path:
-        model = load_model(vmaf_model_path)
-    if model is None:
-        model = builtin_model()
-        logger.warning(
-            "No VMAF model file given; using %s — scores are qualitative, not "
-            "libvmaf-parity. Provide vmaf_v0.6.1.json via vmaf_model_path.",
-            model.name,
-        )
-    vmaf_per_frame = model.predict(feats).numpy()
-    return {
-        "n_frames": n_frames,
-        "psnr": psnr,
-        "ssim": ssim,
-        "vmaf": float(vmaf_per_frame.mean()),
-        "per_frame": {"psnr": s["psnr_avg"], "ssim": s["ssim_all"], "vmaf": vmaf_per_frame, **feats},
-        "vmaf_model": model.name,
-        # True when the score came from the builtin fallback, not a libvmaf
-        # model file (the CSV sink leaves the VMAF cell empty by default).
-        "vmaf_is_fallback": vmaf_is_fallback,
-    }
+    with span("pool"):
+        psnr = float(pooled_psnr(torch.from_numpy(np.asarray(s["mse_avg"], np.float32))))
+        ssim = float(np.mean(s["ssim_all"]))
+        sad = s["motion_sad"]
+        fwd = np.concatenate([sad[1:], [np.inf]])
+        motion2 = np.minimum(sad, fwd)
+        motion2[0] = 0.0
+        feats = {
+            "adm2": s["adm2"],
+            "motion2": motion2.astype(np.float32),
+            "vif_scale0": s["vif_scale0"],
+            "vif_scale1": s["vif_scale1"],
+            "vif_scale2": s["vif_scale2"],
+            "vif_scale3": s["vif_scale3"],
+        }
+        vmaf_is_fallback = model is None and not vmaf_model_path
+        if model is None and vmaf_model_path:
+            model = load_model(vmaf_model_path)
+        if model is None:
+            model = builtin_model()
+            logger.warning(
+                "No VMAF model file given; using %s — scores are qualitative, not "
+                "libvmaf-parity. Provide vmaf_v0.6.1.json via vmaf_model_path.",
+                model.name,
+            )
+        vmaf_per_frame = model.predict(feats).numpy()
+        return {
+            "n_frames": n_frames,
+            "psnr": psnr,
+            "ssim": ssim,
+            "vmaf": float(vmaf_per_frame.mean()),
+            "per_frame": {"psnr": s["psnr_avg"], "ssim": s["ssim_all"], "vmaf": vmaf_per_frame, **feats},
+            "vmaf_model": model.name,
+            # True when the score came from the builtin fallback, not a libvmaf
+            # model file (the CSV sink leaves the VMAF cell empty by default).
+            "vmaf_is_fallback": vmaf_is_fallback,
+        }

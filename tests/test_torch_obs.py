@@ -1,16 +1,24 @@
 """The port's observability: ``obs/roofline.py`` against the JAX package's
-byte counts and the expected H100 bounds, and ``obs/profiler.py::
-device_trace``.
+byte counts and the expected H100 bounds, ``obs/profiler.py::
+device_trace``, and the program's tracer (``StageTimer``, ``span``,
+``clip``, ``count``) over the chunk loop on the CPU.
 """
 
 import json
 import os
+import sys
+import threading
+import time
+import types
 
+import numpy as np
 import pytest
 import torch
 
 from rtvqa_tpu.obs import roofline as jax_roofline
-from rtvqa_tpu_torch.obs import roofline
+from rtvqa_tpu_torch.io import stream
+from rtvqa_tpu_torch.metrics import complexity, complexity_streaming, full_reference
+from rtvqa_tpu_torch.obs import profiler, roofline
 from rtvqa_tpu_torch.obs.profiler import device_trace
 
 SIZES = [(1080, 1920), (2160, 3840)]
@@ -110,3 +118,244 @@ def test_device_trace_without_a_directory_is_a_no_op(tmp_path):
     with device_trace("", "cpu") as empty:
         pass
     assert path is None and empty is None and list(tmp_path.iterdir()) == []
+
+
+# --- the program's tracer (obs/profiler.py: StageTimer, span, clip, count) ---
+
+CHUNK, H, W = 4, 64, 96
+LOOP_SPANS = {"clip", "stage", "wait", "pad", "quality", "complexity", "fetch", "suite_build", "close", "pool"}
+
+
+def planes(n: int, seed: int = 0):
+    """A ref/dis pair of n 64x96 YUV420 frames: ref noise, dis = ref + small noise."""
+    rng = np.random.default_rng(seed)
+    ry = rng.integers(0, 256, (n, H, W), np.uint8)
+    ru, rv = (rng.integers(0, 256, (n, H // 2, W // 2), np.uint8) for _ in range(2))
+    dy = np.clip(ry.astype(np.int16) + rng.integers(-6, 7, ry.shape), 0, 255).astype(np.uint8)
+    return (ry, ru, rv), (dy, ru, rv)
+
+
+def staged(side, chunk=CHUNK):
+    """``prefetch(stage_to_device(...))`` over the side's frames in chunks,
+    as ``VideoStream`` would hand them over."""
+    def batches():
+        y, u, v = side
+        for s in range(0, y.shape[0], chunk):
+            n = min(chunk, y.shape[0] - s)
+            yield stream.FrameBatch(y[s:s + n], u[s:s + n], v[s:s + n], (s + np.arange(n)) * 40.0, s)
+
+    return stream.prefetch(stream.stage_to_device(batches(), chunk, torch.device("cpu")), depth=1)
+
+
+def run_clip(n: int, merged: bool):
+    """One clip through ``combined_chunk_loop`` (plain ops; the tap at
+    interval 2, or the merged step at 1) and ``pool_full_reference``,
+    inside one ``clip()``. Returns (series, complexity, pooled)."""
+    ref, dis = planes(n)
+    acc = complexity_streaming.ComplexityAccumulator(32, 32, 0.8, 4, device="cpu")
+    ref_it, dis_it = staged(ref), staged(dis)
+    try:
+        with profiler.clip():
+            series, n_frames, comp = full_reference.combined_chunk_loop(
+                ref_it, dis_it, CHUNK, acc, 1 if merged else 2, "dis", None, None, torch.device("cpu"),
+                "plain", merged)
+            pooled = full_reference.pool_full_reference(series, n_frames)
+    finally:
+        ref_it.close()
+        dis_it.close()
+    return series, comp, pooled
+
+
+@pytest.fixture
+def counted_ranges(monkeypatch):
+    """Every ``torch.profiler.record_function`` the tracer opens, and every
+    clock read of the profiler module, counted."""
+    seen = {"ranges": [], "clock": 0}
+    real_rf, real_clock = torch.profiler.record_function, time.perf_counter
+
+    def rf(name, *a, **k):
+        seen["ranges"].append(name)
+        return real_rf(name, *a, **k)
+
+    def clock():
+        seen["clock"] += 1
+        return real_clock()
+
+    monkeypatch.setattr(torch.profiler, "record_function", rf)
+    monkeypatch.setattr(profiler, "time", types.SimpleNamespace(perf_counter=clock, time_ns=time.time_ns))
+    return seen
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_tracing_leaves_the_results_bit_equal(merged):
+    off = run_clip(11, merged)
+    timer = profiler.StageTimer()
+    with timer.active():
+        on = run_clip(11, merged)
+    assert timer.records
+    assert off[0].keys() == on[0].keys()
+    for k in off[0]:
+        np.testing.assert_array_equal(off[0][k], on[0][k], err_msg=k)
+    assert off[1] == on[1]
+    for k in ("psnr", "ssim", "vmaf"):
+        assert off[2][k] == on[2][k], k
+
+
+def test_with_no_active_tracer_a_span_site_does_nothing(counted_ranges, tmp_path):
+    """Off, even under a running profiler: no record, no range, no clock
+    read; every span site hands back one shared no-op context."""
+    timer = profiler.StageTimer()
+    with device_trace(str(tmp_path), "cpu") as path:
+        run_clip(11, merged=False)
+    assert counted_ranges == {"ranges": [], "clock": 0}
+    assert timer.records == [] and timer.counters == {}
+    assert profiler.span("quality") is profiler.clip() is profiler.span("fetch")
+    profiler.count("h2d_bytes", 5)
+    with open(path) as f:
+        assert not [e for e in json.load(f)["traceEvents"] if str(e.get("name", "")).startswith("rtvqa.")]
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_spans_of_one_clip_nest_under_it(merged):
+    timer = profiler.StageTimer()
+    with timer.active():
+        run_clip(11, merged)
+    recs = timer.records
+    names = {r.name for r in recs}
+    assert names == LOOP_SPANS | ({"complexity"} if merged else {"tap"})
+    main = threading.main_thread().ident
+    assert {r.thread for r in recs if r.name == "stage"} and all(
+        r.thread != main for r in recs if r.name == "stage")
+    assert all(r.thread == main for r in recs if r.name != "stage")
+    (root,) = [r for r in recs if r.name == "clip"]
+    assert root.parent is None and {r.clip for r in recs} == {root.id}
+    by_id = {r.id: r for r in recs}
+    for r in recs:
+        if r is not root:
+            p = by_id[r.parent]
+            assert p.start <= r.start <= r.end <= p.end, (r, p)
+    # The producers started inside the clip: their spans are its children.
+    assert {r.parent for r in recs if r.name == "stage"} == {root.id}
+    sums = timer.span_totals()
+    assert sums["fetch"]["calls"] == 3 and sums["pad"]["calls"] == 1 and sums["stage"]["calls"] == 4
+
+
+@pytest.mark.parametrize("n", [8, 9, 11, 13])
+def test_padded_frames_count_the_ragged_tail(n):
+    timer = profiler.StageTimer()
+    with timer.active():
+        series, _, _ = run_clip(n, merged=False)
+    assert len(series["psnr_y"]) == n
+    pad = -n % CHUNK
+    assert timer.counters.get("padded_frames", 0) == pad
+    assert timer.counters["staged_chunks"] == 2 * (n // CHUNK)
+    assert timer.span_totals().get("pad", {"calls": 0})["calls"] == (1 if pad else 0)
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_h2d_bytes_are_the_uploaded_planes_and_the_suite_tables(merged):
+    n = 11
+    timer = profiler.StageTimer()
+    with timer.active():
+        run_clip(n, merged)
+    frame = H * W + 2 * (H // 2) * (W // 2)
+    full, tail = n // CHUNK, n % CHUNK
+    planes_bytes = 2 * full * CHUNK * frame + (2 * CHUNK * frame if tail else 0)
+    copies = 2 * 3 * full + (6 if tail else 0)
+    if not merged:  # the tap re-uploads its sampled frames (interval 2: frames 1, 3, 5, ...) at each flush
+        sampled = n // 2
+        flushes = -(-sampled // 4)
+        planes_bytes += sampled * frame
+        copies += 3 * flushes
+    suite = complexity.ComplexitySuite(H, W, 32, 32)
+    tables = list(suite.buffers())
+    assert timer.counters["suite_builds"] == 1
+    assert timer.counters["h2d_bytes"] == planes_bytes + sum(t.nbytes for t in tables)
+    assert timer.counters["h2d_copies"] == copies + len(tables)
+
+
+def test_rtvqa_ranges_reach_the_chrome_trace(counted_ranges, tmp_path):
+    """On, under ``device_trace``: the main thread's spans are ``rtvqa.*``
+    ranges of the trace; the producer thread is not profiled there, its
+    spans are in the tracer's own records."""
+    timer = profiler.StageTimer()
+    with timer.active(), device_trace(str(tmp_path), "cpu") as path:
+        run_clip(11, merged=True)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e["name"] for e in events if str(e.get("name", "")).startswith("rtvqa.")}
+    assert ranges >= {f"rtvqa.{n}" for n in LOOP_SPANS - {"stage"}}
+    assert set(counted_ranges["ranges"]) == ranges
+    out = tmp_path / "spans.json"
+    timer.write(str(out))
+    with open(out) as f:
+        written = json.load(f)
+    assert len(written["traceEvents"]) == len(timer.records)
+    assert {e["name"] for e in written["traceEvents"]} == {f"rtvqa.{n}" for n in LOOP_SPANS}
+    assert written["counters"] == timer.counters
+
+
+def test_clip_inside_a_clip_and_nested_activation():
+    outer, inner = profiler.StageTimer(), profiler.StageTimer()
+    with outer.active():
+        with profiler.clip():
+            with profiler.clip():
+                with profiler.span("quality"):
+                    pass
+        with inner.active():
+            profiler.count("h2d_bytes", 3)
+        profiler.count("h2d_bytes", 4)
+    profiler.count("h2d_bytes", 5)
+    assert [r.name for r in outer.records] == ["quality", "clip"]
+    assert outer.records[0].parent == outer.records[0].clip == outer.records[1].id
+    assert inner.counters == {"h2d_bytes": 3} and outer.counters == {"h2d_bytes": 4}
+    outer.reset()
+    assert outer.records == [] and outer.counters == {}
+
+
+def test_counters_lose_no_update_across_threads():
+    """Sixteen threads counting at once, with a short switch interval."""
+    timer, per = profiler.StageTimer(), 2000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with timer.active():
+            threads = [threading.Thread(target=lambda: [profiler.count("n") for _ in range(per)])
+                       for _ in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert timer.counters["n"] == 16 * per
+
+
+def test_frames_per_sec_is_over_the_wall_clock_of_the_stages(monkeypatch):
+    """Nested stages: 10 frames over a 2 s window (0 to 2), not over the 3 s
+    the stage times sum to."""
+    ticks = iter([0.0, 0.5, 1.5, 2.0])
+    monkeypatch.setattr(profiler, "time", types.SimpleNamespace(perf_counter=lambda: next(ticks)))
+    timer = profiler.StageTimer()
+    with timer.stage("quality+complexity"):
+        with timer.stage("quality"):
+            pass
+    timer.add_frames(10)
+    s = timer.summary()
+    assert s["total_seconds"] == 3.0
+    assert s["frames_per_sec"] == 5.0
+    assert "spans" not in s
+
+
+def test_active_stages_are_spans_but_not_span_totals():
+    timer = profiler.StageTimer()
+    with timer.active(), timer.stage("quality"):
+        with profiler.span("quality"):
+            profiler.count("padded_frames", 2)
+    s = timer.summary()
+    assert s["stages"]["quality"]["calls"] == 1
+    assert s["spans"] == {"quality": {"seconds": pytest.approx(s["spans"]["quality"]["seconds"]), "calls": 1}}
+    assert s["counters"] == {"padded_frames": 2}
+    stage_rec, = [r for r in timer.records if r.stage]
+    assert [r.parent for r in timer.records if not r.stage] == [stage_rec.id]

@@ -116,6 +116,38 @@ def test_cli_json_line(env, capsys):
     assert {"encode", "decode", "complexity"} <= set(out["profile"]["stages"])
 
 
+def test_cli_trace_and_json_carry_the_programs_spans(env, tmp_path, capsys):
+    """On the default route (``analyze_combined``), ``--trace DIR --json``
+    make the run's timer the tracer: ``"profile"`` carries each span name's
+    seconds and calls and the counters, the profiler's trace has the main
+    thread's ``rtvqa.*`` ranges, and DIR has every thread's span records."""
+    from rtvqa_tpu_torch.cli import main as torch_main
+
+    cfg = {"crf": 20, "resize_width": 32, "resize_height": 32, "frame_interval": 3,
+           "allow_builtin_vmaf": True, "csv_file": str(tmp_path / "default.csv")}
+    with open(tmp_path / "default.json", "w") as f:
+        json.dump(cfg, f)
+    trace_dir = tmp_path / "trace"
+    argv = [str(tmp_path / "default.json"), env["clip"], "--trace", str(trace_dir), "--json", "--device", "cpu"]
+    assert torch_main(argv) == 0
+    prof = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["profile"]
+    # 18 frames, one chunk of 128: all padded on the host, nothing staged.
+    assert set(prof["spans"]) == {"clip", "wait", "pad", "quality", "tap", "complexity", "fetch", "suite_build",
+                                  "close", "pool"}
+    assert prof["counters"]["padded_frames"] == 128 - 18 and "staged_chunks" not in prof["counters"]
+    assert prof["spans"]["clip"]["calls"] == 1 and prof["counters"]["suite_builds"] == 1
+    assert prof["counters"]["h2d_bytes"] > 0
+    assert "quality+complexity" in prof["stages"] and "quality+complexity" not in prof["spans"]
+    (spans_file,) = trace_dir.glob("rtvqa_spans.*.json")
+    (chrome,) = trace_dir.glob("rtvqa_torch.*.pt.trace.json")
+    with open(spans_file) as f:
+        records = json.load(f)["traceEvents"]
+    assert {e["name"] for e in records} >= {"rtvqa.clip", "rtvqa.pad", "rtvqa.quality+complexity"}
+    with open(chrome) as f:
+        ranges = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"rtvqa.clip", "rtvqa.quality", "rtvqa.fetch", "rtvqa.encode"} <= ranges
+
+
 @pytest.mark.parametrize("flag", [["--sweep"], ["--sweep", "18", "28"], ["--sweep", "30", "--sharded"],
                                   ["--trace", "t"]])
 def test_cli_refuses_unported_modes(env, tmp_path, capsys, flag):
