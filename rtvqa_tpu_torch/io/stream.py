@@ -4,11 +4,14 @@ background prefetcher, and device staging (the port's own copy of
 
 ``VideoStream`` yields fixed-size YUV420 batches from the native streaming
 decoder; ``prefetch`` runs any iterator one batch ahead on a thread, so host
-decode overlaps device compute; ``stage_to_device`` uploads full chunks on
-that thread through pinned host buffers with ``non_blocking=True``.
+decode overlaps device compute; ``stage_to_device`` uploads every batch of
+up to ``chunk`` frames on that thread through pinned host buffers with
+``non_blocking=True``, and pads a ragged tail to ``chunk`` frames on the
+device by repeating its last frame (``upload_rows``).
 
-Spans and counters (``obs/profiler.py``): ``stage`` per staged chunk and
-``staged_chunks`` on the producer thread, ``wait`` in the consumer's
+Spans and counters (``obs/profiler.py``): ``stage`` per staged batch,
+``staged_chunks`` (every staged batch) and ``staged_tails`` (those padded
+on the device) on the producer thread, ``wait`` in the consumer's
 ``next()`` and ``close`` when it lets go, ``h2d_bytes`` and ``h2d_copies``
 at every ``upload``.
 """
@@ -174,11 +177,12 @@ def stream_batches(
 
 @dataclasses.dataclass
 class StagedFrameBatch:
-    """A decoded batch plus, for full chunks, its planes on the device.
+    """A decoded batch plus its planes on the device.
 
-    ``y/u/v`` are device tensors for full ``chunk``-sized batches and
-    ``None`` for a ragged tail (the consumer pads those on the host).
-    ``host`` always carries the decoded numpy planes.
+    ``y/u/v`` are device tensors of ``chunk`` frames for a batch of 1 to
+    ``chunk`` frames (a ragged tail's rows beyond its frames repeat its
+    last frame), and ``None`` for a batch passed through host-only.
+    ``host`` always carries the decoded numpy planes, unpadded.
     """
 
     host: FrameBatch
@@ -201,24 +205,53 @@ def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def repeat_last(p: torch.Tensor, n: int) -> torch.Tensor:
+    """Rows ``n`` onwards of ``p`` set, in place on its device, to copies
+    of row ``n - 1``; returns ``p``."""
+    if n < p.shape[0]:
+        p[n:] = p[n - 1]
+    return p
+
+
+def upload_rows(a: np.ndarray, rows: int, device: torch.device) -> torch.Tensor:
+    """``a``'s ``n <= rows`` frames as a plane of ``rows`` frames on
+    ``device``: the ``n`` frames go through ``upload``; for ``n < rows``
+    they are copied on the device into the head of a fresh plane whose
+    other rows repeat frame ``n - 1`` (``repeat_last``), and the ``n``-frame
+    tensor is let go."""
+    t = upload(a, device)
+    n = a.shape[0]
+    if n == rows:
+        return t
+    out = torch.empty((rows, *t.shape[1:]), dtype=t.dtype, device=device)
+    out[:n] = t
+    return repeat_last(out, n)
+
+
 def stage_to_device(
     iterator: Iterator[FrameBatch], chunk: Optional[int], device: torch.device
 ) -> Iterator[StagedFrameBatch]:
-    """Wrap a FrameBatch iterator, staging full chunks onto ``device``.
+    """Wrap a FrameBatch iterator, staging each batch of 1 to ``chunk``
+    frames onto ``device`` as planes of ``chunk`` frames, a ragged tail
+    padded there (``upload_rows``), one plane at a time.
 
-    Meant to run inside ``prefetch``, so the upload is issued on the
-    producer thread: ``prefetch(stage_to_device(VideoStream(...), chunk,
-    dev))``. ``chunk=None`` passes batches through host-only.
+    Meant to run inside ``prefetch``, so the upload and the padding are
+    issued on the producer thread: ``prefetch(stage_to_device(
+    VideoStream(...), chunk, dev))``. ``chunk=None`` passes batches through
+    host-only, as it does a batch of more than ``chunk`` frames.
     """
     try:
         for fb in iterator:
-            if chunk is not None and fb.y.shape[0] == chunk:
-                with span("stage"):
-                    planes = tuple(upload(a, device) for a in (fb.y, fb.u, fb.v))
-                count("staged_chunks")
-                yield StagedFrameBatch(fb, *planes)
-            else:
+            n = fb.y.shape[0]
+            if chunk is None or not 0 < n <= chunk:
                 yield StagedFrameBatch(fb)
+                continue
+            with span("stage"):
+                planes = tuple(upload_rows(a, chunk, device) for a in (fb.y, fb.u, fb.v))
+            count("staged_chunks")
+            if n < chunk:
+                count("staged_tails")
+            yield StagedFrameBatch(fb, *planes)
     finally:
         close = getattr(iterator, "close", None)
         if close is not None:

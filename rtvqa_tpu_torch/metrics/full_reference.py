@@ -17,10 +17,11 @@ per-frame series of ``CHUNK_KEYS``:
   ``program_a`` on plain ops, VIF as four ``vif_scale_cuda`` calls, ADM as
   scale 0 plus the scale chain.
 
-A ragged last chunk is padded by repeating its last frame; the blurred last
-ref frame carries across chunks, and frame 0's SAD is masked. Per-frame
-series return to the host; pooling (mean MSE -> PSNR, mean SSIM, the
-motion2 min rule, per-frame SVR -> mean VMAF) happens at the end.
+A ragged last chunk is padded by repeating its last frame, on the device
+(the prefetch threads stage it so, ``io/stream.py::stage_to_device``); the
+blurred last ref frame carries across chunks, and frame 0's SAD is masked.
+Per-frame series return to the host; pooling (mean MSE -> PSNR, mean SSIM,
+the motion2 min rule, per-frame SVR -> mean VMAF) happens at the end.
 
 ``analyze_combined`` (the default config's route) runs the same loop and
 taps every ``frame_interval``-th decoded frame of one stream into a
@@ -33,9 +34,11 @@ the device, and one packed fetch per chunk feeds the accumulator.
 
 Spans and counters (``obs/profiler.py``): ``clip`` around a clip's loop,
 ``quality`` around each chunk's launches, ``complexity`` around the merged
-step's values, ``tap`` around the tap, ``pad`` (and ``padded_frames``)
-where a ragged tail is padded and uploaded, ``fetch`` where the host waits
-for a chunk's series, and ``pool``.
+step's values, ``tap`` around the tap, ``padded_frames`` for the padding
+rows every chunk computes, ``pad`` where the loop itself pads on the device
+(the longer stream's last batch cut to the shorter's, or a batch that
+arrived host-only), ``fetch`` where the host waits for a chunk's series,
+and ``pool``.
 """
 
 from __future__ import annotations
@@ -46,7 +49,14 @@ import numpy as np
 import torch
 
 from rtvqa_tpu_torch.device import get_device
-from rtvqa_tpu_torch.io.stream import VideoStream, prefetch, stage_to_device, upload
+from rtvqa_tpu_torch.io.stream import (  # noqa: F401 (upload: callers wrap it under this name)
+    VideoStream,
+    prefetch,
+    repeat_last,
+    stage_to_device,
+    upload,
+    upload_rows,
+)
 from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
 from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
 from rtvqa_tpu_torch.kernels.vif import vif_features_cuda, vif_tail_cuda
@@ -194,6 +204,23 @@ def auto_chunk(width: int, height: int, requested: Optional[int] = None) -> int:
     return max(2, (chunk // 2) * 2)
 
 
+def _device_planes(sb, n: int, chunk: int, device) -> tuple:
+    """The (y, u, v) device planes of ``chunk`` frames of one stream's
+    ``StagedFrameBatch`` whose first ``n`` frames the chunk computes, the
+    rows past them repeating frame ``n - 1``. Staged planes pass as they
+    are, unless the batch holds more than ``n`` frames (the other stream
+    ended first): then they are padded again from row ``n - 1``, in place on
+    the card (a CPU plane may share the caller's host array, so it is
+    copied first). A host-only batch's ``n`` frames are uploaded and padded
+    on the device (``upload_rows``)."""
+    if sb.y is not None and sb.host.y.shape[0] == n:
+        return sb.y, sb.u, sb.v
+    with span("pad"):
+        if sb.y is None:
+            return tuple(upload_rows(a[:n], chunk, device) for a in (sb.host.y, sb.host.u, sb.host.v))
+        return tuple(repeat_last(p if p.is_cuda else p.clone(), n) for p in (sb.y, sb.u, sb.v))
+
+
 def _quality_chunk_loop(ref_it, dis_it, chunk: int, vif_egl, adm_egl, device, impl: str, tap=None,
                         runner=None, combined=None):
     """Consume lockstep (ref, dis) ``StagedFrameBatch`` iterators; returns
@@ -225,17 +252,9 @@ def _quality_chunk_loop(ref_it, dis_it, chunk: int, vif_egl, adm_egl, device, im
         n = min(rhost.y.shape[0], dhost.y.shape[0])
         if n == 0:
             break
-        pad = chunk - n
-        if pad == 0 and rb.y is not None and db.y is not None:
-            planes = (rb.y, rb.u, rb.v, db.y, db.u, db.v)
-        else:
-            def prep(a, n=n, pad=pad):
-                a = a[:n]
-                return upload(np.concatenate([a, np.repeat(a[-1:], pad, 0)], 0), device)
-
-            with span("pad"):
-                planes = tuple(prep(a) for a in (rhost.y, rhost.u, rhost.v, dhost.y, dhost.u, dhost.v))
-            count("padded_frames", pad)
+        planes = _device_planes(rb, n, chunk, device) + _device_planes(db, n, chunk, device)
+        if n < chunk:
+            count("padded_frames", chunk - n)
         if carry_blur is None:
             carry_blur = torch.zeros(rhost.y.shape[1:], dtype=torch.float32, device=device)
         if combined is None:

@@ -3,14 +3,15 @@ axis sharded over a mesh, streaming in bounded chunks (counterpart of
 ``rtvqa_tpu/pipeline/quality_sharded.py``).
 
 Rank 0 decodes both streams and runs the single-device chunk loop
-(``metrics/full_reference.py::_quality_chunk_loop``, which repeat-pads a
-ragged last chunk) with a runner in place of the chunk body: per chunk it
-broadcasts a header (the planes' shapes), scatters each rank's slice of
-the chunk, and every rank runs ``parallel/sharding.py::
-sharded_quality_chunk_step`` on its slice. The other ranks of the mesh loop
-on the headers: a header of None ends the loop, an error text raises, so
-every rank leaves the loop with rank 0. Pooling
-(``pool_full_reference``) runs on rank 0 and the result goes to every rank.
+(``metrics/full_reference.py::_quality_chunk_loop``; its prefetch threads
+repeat-pad a ragged last chunk where they stage it) with a runner in place
+of the chunk body: per chunk it broadcasts a header (the planes' shapes),
+scatters each rank's slice of the chunk, and every rank runs
+``parallel/sharding.py::sharded_quality_chunk_step`` on its slice. The
+other ranks of the mesh loop on the headers: a header of None ends the
+loop, an error text raises, so every rank leaves the loop with rank 0.
+Pooling (``pool_full_reference``) runs on rank 0 and the result goes to
+every rank.
 
 Under NCCL rank 0 stages each chunk on its card (pinned upload) and
 scatters from there; under gloo the chunk stays on the host and each rank

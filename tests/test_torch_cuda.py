@@ -918,3 +918,74 @@ def test_orb_features_card_matches_cpu(dev):
             torch.testing.assert_close(got[key].cpu(), w, rtol=0, atol=1e-5)
         else:
             assert torch.equal(got[key].cpu(), w), key
+
+
+def _batches(planes, chunk):
+    from rtvqa_tpu_torch.io.stream import FrameBatch
+
+    n = planes[0].shape[0]
+    for s in range(0, n, chunk):
+        k = min(chunk, n - s)
+        yield FrameBatch(*(a[s:s + k] for a in planes), (s + np.arange(k)) * 40.0, s)
+
+
+@pytest.mark.parametrize("n", [1, 30, 64, 94])
+def test_staged_tails_are_padded_on_the_card(dev, n):
+    """1080p batches staged at chunk 64 on a prefetch thread: every plane
+    on the card is the batch's frames then copies of its last, byte for
+    byte, whole chunks and ragged tails alike."""
+    from rtvqa_tpu_torch.io.stream import prefetch, stage_to_device
+
+    rng = np.random.default_rng(n)
+    planes = (rng.integers(0, 256, (n, 1080, 1920), dtype=np.uint8),
+              *(rng.integers(0, 256, (n, 540, 960), dtype=np.uint8) for _ in range(2)))
+    it = prefetch(stage_to_device(_batches(planes, 64), 64, dev), depth=1)
+    try:
+        got = list(it)
+    finally:
+        it.close()
+    assert len(got) == -(-n // 64)
+    for sb in got:
+        k = sb.host.y.shape[0]
+        for a, p in zip((sb.host.y, sb.host.u, sb.host.v), (sb.y, sb.u, sb.v)):
+            assert p.device.type == dev.type and p.shape[0] == 64
+            want = np.concatenate([a, np.repeat(a[-1:], 64 - k, 0)])
+            assert p.cpu().numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_chunk_loop_on_the_card_pads_tails_as_the_host_did(dev, merged):
+    """The combined loop on the kernels over 11 frames at chunk 4: tails
+    staged and padded on the card give the series and complexity of
+    chunks repeat-padded on the host, bit for bit."""
+    from rtvqa_tpu_torch.io.stream import StagedFrameBatch, prefetch, stage_to_device, upload
+    from rtvqa_tpu_torch.metrics.complexity_streaming import ComplexityAccumulator
+    from rtvqa_tpu_torch.metrics.full_reference import combined_chunk_loop
+
+    rng = np.random.default_rng(7)
+    ref = (rng.integers(0, 256, (11, 64, 96), dtype=np.uint8),
+           *(rng.integers(0, 256, (11, 32, 48), dtype=np.uint8) for _ in range(2)))
+    dis = (np.clip(ref[0].astype(np.int16) + rng.integers(-6, 7, ref[0].shape), 0, 255).astype(np.uint8),
+           *ref[1:])
+
+    def host_padded(side):
+        for fb in _batches(side, 4):
+            pad = 4 - fb.y.shape[0]
+            yield StagedFrameBatch(fb, *(upload(np.concatenate([a, np.repeat(a[-1:], pad, 0)]), dev)
+                                         for a in (fb.y, fb.u, fb.v)))
+
+    def run(stage):
+        acc = ComplexityAccumulator(32, 32, 0.8, 4, device=dev)
+        its = [stage(side) for side in (ref, dis)]
+        try:
+            return combined_chunk_loop(*its, 4, acc, 1 if merged else 2, "dis", None, None, dev, "kernel", merged)
+        finally:
+            for it in its:
+                it.close()
+
+    want = run(host_padded)
+    got = run(lambda side: prefetch(stage_to_device(_batches(side, 4), 4, dev), depth=1))
+    assert got[1] == want[1] == 11
+    for key, w in want[0].items():
+        np.testing.assert_array_equal(got[0][key], w, err_msg=key)
+    assert got[2] == want[2]

@@ -123,7 +123,7 @@ def test_device_trace_without_a_directory_is_a_no_op(tmp_path):
 # --- the program's tracer (obs/profiler.py: StageTimer, span, clip, count) ---
 
 CHUNK, H, W = 4, 64, 96
-LOOP_SPANS = {"clip", "stage", "wait", "pad", "quality", "complexity", "fetch", "suite_build", "close", "pool"}
+LOOP_SPANS = {"clip", "stage", "wait", "quality", "complexity", "fetch", "suite_build", "close", "pool"}
 
 
 def planes(n: int, seed: int = 0):
@@ -135,25 +135,50 @@ def planes(n: int, seed: int = 0):
     return (ry, ru, rv), (dy, ru, rv)
 
 
+def frame_batches(side, chunk=CHUNK):
+    """The side's frames in batches of ``chunk``, as ``VideoStream`` would
+    hand them over (the last may be shorter)."""
+    y, u, v = side
+    for s in range(0, y.shape[0], chunk):
+        n = min(chunk, y.shape[0] - s)
+        yield stream.FrameBatch(y[s:s + n], u[s:s + n], v[s:s + n], (s + np.arange(n)) * 40.0, s)
+
+
 def staged(side, chunk=CHUNK):
-    """``prefetch(stage_to_device(...))`` over the side's frames in chunks,
-    as ``VideoStream`` would hand them over."""
-    def batches():
-        y, u, v = side
-        for s in range(0, y.shape[0], chunk):
-            n = min(chunk, y.shape[0] - s)
-            yield stream.FrameBatch(y[s:s + n], u[s:s + n], v[s:s + n], (s + np.arange(n)) * 40.0, s)
-
-    return stream.prefetch(stream.stage_to_device(batches(), chunk, torch.device("cpu")), depth=1)
+    """``prefetch(stage_to_device(...))`` over the side's frame batches."""
+    return stream.prefetch(stream.stage_to_device(frame_batches(side, chunk), chunk, torch.device("cpu")),
+                           depth=1)
 
 
-def run_clip(n: int, merged: bool):
+def host_padded(side, chunk=CHUNK):
+    """The side's frame batches with planes repeat-padded to ``chunk``
+    frames on the host (``np.repeat`` of the last frame) and handed over as
+    staged: the chunks the loop computed before ragged tails were padded on
+    the device."""
+    for fb in frame_batches(side, chunk):
+        pad = chunk - fb.y.shape[0]
+        yield stream.StagedFrameBatch(fb, *(torch.from_numpy(np.concatenate([a, np.repeat(a[-1:], pad, 0)]))
+                                            for a in (fb.y, fb.u, fb.v)))
+
+
+def host_only(side, chunk=CHUNK):
+    """The side's frame batches staged with ``chunk=None``: host-only."""
+    return stream.prefetch(stream.stage_to_device(frame_batches(side, chunk), None, torch.device("cpu")),
+                           depth=1)
+
+
+def run_clip(n: int, merged: bool, stage=staged):
+    """One clip of ``n`` frames through ``run_pair``."""
+    return run_pair(*planes(n), merged, stage)
+
+
+def run_pair(ref, dis, merged: bool, stage=staged):
     """One clip through ``combined_chunk_loop`` (plain ops; the tap at
     interval 2, or the merged step at 1) and ``pool_full_reference``,
-    inside one ``clip()``. Returns (series, complexity, pooled)."""
-    ref, dis = planes(n)
+    inside one ``clip()``, each side's batches handed over by ``stage``.
+    Returns (series, complexity, pooled)."""
     acc = complexity_streaming.ComplexityAccumulator(32, 32, 0.8, 4, device="cpu")
-    ref_it, dis_it = staged(ref), staged(dis)
+    ref_it, dis_it = stage(ref), stage(dis)
     try:
         with profiler.clip():
             series, n_frames, comp = full_reference.combined_chunk_loop(
@@ -186,6 +211,17 @@ def counted_ranges(monkeypatch):
     return seen
 
 
+def assert_bit_equal(want, got):
+    """Two ``run_pair`` results: every series, the complexity result and
+    the pooled numbers equal, bit for bit."""
+    assert want[0].keys() == got[0].keys()
+    for k in want[0]:
+        np.testing.assert_array_equal(want[0][k], got[0][k], err_msg=k)
+    assert want[1] == got[1]
+    for k in ("psnr", "ssim", "vmaf"):
+        assert want[2][k] == got[2][k], k
+
+
 @pytest.mark.parametrize("merged", [False, True])
 def test_tracing_leaves_the_results_bit_equal(merged):
     off = run_clip(11, merged)
@@ -193,12 +229,66 @@ def test_tracing_leaves_the_results_bit_equal(merged):
     with timer.active():
         on = run_clip(11, merged)
     assert timer.records
-    assert off[0].keys() == on[0].keys()
-    for k in off[0]:
-        np.testing.assert_array_equal(off[0][k], on[0][k], err_msg=k)
-    assert off[1] == on[1]
-    for k in ("psnr", "ssim", "vmaf"):
-        assert off[2][k] == on[2][k], k
+    assert_bit_equal(off, on)
+
+
+@pytest.mark.parametrize("merged", [False, True])
+@pytest.mark.parametrize("n", [8, 9, 11, 13])
+def test_tails_padded_on_the_device_equal_tails_padded_on_the_host(n, merged):
+    """Tails staged and repeat-padded on the device give the series,
+    complexity and pooled numbers of chunks repeat-padded on the host."""
+    assert_bit_equal(run_clip(n, merged, host_padded), run_clip(n, merged))
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_host_only_batches_are_uploaded_and_padded_by_the_loop(merged):
+    """Batches staged with ``chunk=None`` reach the loop host-only: it
+    uploads their frames and pads on the device, in ``pad``, to the same
+    results."""
+    timer = profiler.StageTimer()
+    with timer.active():
+        got = run_clip(11, merged, host_only)
+    assert_bit_equal(run_clip(11, merged), got)
+    assert timer.span_totals()["pad"]["calls"] == 2 * 3 and "stage" not in timer.span_totals()
+    assert "staged_chunks" not in timer.counters and timer.counters["padded_frames"] == 1
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_a_staged_ragged_batch_is_its_frames_then_its_last_repeated(n):
+    """Each of the six planes of a staged ragged batch (ref and dis) holds
+    the batch's frames then copies of its last, byte for byte, in a
+    ``CHUNK``-frame plane; only the frames crossed to the device."""
+    frame = H * W + 2 * (H // 2) * (W // 2)
+    timer = profiler.StageTimer()
+    with timer.active():
+        got = [(side, *stream.stage_to_device(frame_batches(side), CHUNK, torch.device("cpu")))
+               for side in planes(n)]
+    for side, sb in got:
+        assert sb.host.y.shape == side[0].shape and np.shares_memory(sb.host.y, side[0])  # the host batch unpadded
+        for a, p in zip(side, (sb.y, sb.u, sb.v)):
+            want = np.concatenate([a, np.repeat(a[-1:], CHUNK - n, 0)])
+            assert p.dtype == torch.uint8 and tuple(p.shape) == want.shape
+            assert p.numpy().tobytes() == want.tobytes()
+    assert timer.counters == {"staged_chunks": 2, "staged_tails": 2, "h2d_bytes": 2 * n * frame, "h2d_copies": 6}
+    assert timer.span_totals()["stage"]["calls"] == 2
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_unequal_streams_give_the_common_prefix(merged):
+    """ref 13 frames, dis 11: the loop stops at the common prefix, padding
+    the ref's third chunk again from its third frame, and gives what the
+    11-frame pair gives; the caller's host frames stay as they were."""
+    ref, dis = planes(13)
+    dis = tuple(a[:11] for a in dis)
+    kept = tuple(a.copy() for a in ref)
+    timer = profiler.StageTimer()
+    with timer.active():
+        got = run_pair(ref, dis, merged)
+    assert_bit_equal(run_pair(tuple(a[:11] for a in ref), dis, merged), got)
+    assert len(got[0]["psnr_y"]) == 11
+    assert timer.span_totals()["pad"]["calls"] == 1 and timer.counters["padded_frames"] == 1
+    for a, b in zip(ref, kept):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_with_no_active_tracer_a_span_site_does_nothing(counted_ranges, tmp_path):
@@ -237,7 +327,10 @@ def test_spans_of_one_clip_nest_under_it(merged):
     # The producers started inside the clip: their spans are its children.
     assert {r.parent for r in recs if r.name == "stage"} == {root.id}
     sums = timer.span_totals()
-    assert sums["fetch"]["calls"] == 3 and sums["pad"]["calls"] == 1 and sums["stage"]["calls"] == 4
+    # 11 frames at CHUNK 4: each producer stages 2 chunks and the tail (padded on the device, in
+    # ``stage``); the main thread pads nothing.
+    assert sums["fetch"]["calls"] == 3 and "pad" not in sums and sums["stage"]["calls"] == 6
+    assert timer.counters["staged_chunks"] == 6 and timer.counters["staged_tails"] == 2
 
 
 @pytest.mark.parametrize("n", [8, 9, 11, 13])
@@ -248,8 +341,10 @@ def test_padded_frames_count_the_ragged_tail(n):
     assert len(series["psnr_y"]) == n
     pad = -n % CHUNK
     assert timer.counters.get("padded_frames", 0) == pad
-    assert timer.counters["staged_chunks"] == 2 * (n // CHUNK)
-    assert timer.span_totals().get("pad", {"calls": 0})["calls"] == (1 if pad else 0)
+    # The producers stage the tail too and pad it on the device: no ``pad`` span on the main thread.
+    assert timer.counters["staged_chunks"] == 2 * -(-n // CHUNK)
+    assert timer.counters.get("staged_tails", 0) == (2 if pad else 0)
+    assert "pad" not in timer.span_totals()
 
 
 @pytest.mark.parametrize("merged", [False, True])
@@ -260,7 +355,7 @@ def test_h2d_bytes_are_the_uploaded_planes_and_the_suite_tables(merged):
         run_clip(n, merged)
     frame = H * W + 2 * (H // 2) * (W // 2)
     full, tail = n // CHUNK, n % CHUNK
-    planes_bytes = 2 * full * CHUNK * frame + (2 * CHUNK * frame if tail else 0)
+    planes_bytes = 2 * (full * CHUNK + tail) * frame  # a tail's frames only: its padding is made on the device
     copies = 2 * 3 * full + (6 if tail else 0)
     if not merged:  # the tap re-uploads its sampled frames (interval 2: frames 1, 3, 5, ...) at each flush
         sampled = n // 2

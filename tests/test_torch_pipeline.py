@@ -131,10 +131,13 @@ def test_cli_trace_and_json_carry_the_programs_spans(env, tmp_path, capsys):
     argv = [str(tmp_path / "default.json"), env["clip"], "--trace", str(trace_dir), "--json", "--device", "cpu"]
     assert torch_main(argv) == 0
     prof = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["profile"]
-    # 18 frames, one chunk of 128: all padded on the host, nothing staged.
-    assert set(prof["spans"]) == {"clip", "wait", "pad", "quality", "tap", "complexity", "fetch", "suite_build",
+    # 18 frames, one chunk of 128: each producer stages the 18 frames and pads them to 128 on the
+    # device, in ``stage``; the main thread pads nothing, so there is no ``pad`` span.
+    assert set(prof["spans"]) == {"clip", "stage", "wait", "quality", "tap", "complexity", "fetch", "suite_build",
                                   "close", "pool"}
-    assert prof["counters"]["padded_frames"] == 128 - 18 and "staged_chunks" not in prof["counters"]
+    assert prof["counters"]["padded_frames"] == 128 - 18
+    assert prof["counters"]["staged_chunks"] == 2 and prof["counters"]["staged_tails"] == 2
+    assert prof["spans"]["stage"]["calls"] == 2
     assert prof["spans"]["clip"]["calls"] == 1 and prof["counters"]["suite_builds"] == 1
     assert prof["counters"]["h2d_bytes"] > 0
     assert "quality+complexity" in prof["stages"] and "quality+complexity" not in prof["spans"]
@@ -142,7 +145,7 @@ def test_cli_trace_and_json_carry_the_programs_spans(env, tmp_path, capsys):
     (chrome,) = trace_dir.glob("rtvqa_torch.*.pt.trace.json")
     with open(spans_file) as f:
         records = json.load(f)["traceEvents"]
-    assert {e["name"] for e in records} >= {"rtvqa.clip", "rtvqa.pad", "rtvqa.quality+complexity"}
+    assert {e["name"] for e in records} >= {"rtvqa.clip", "rtvqa.stage", "rtvqa.quality+complexity"}
     with open(chrome) as f:
         ranges = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"rtvqa.clip", "rtvqa.quality", "rtvqa.fetch", "rtvqa.encode"} <= ranges
