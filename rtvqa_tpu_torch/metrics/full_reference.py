@@ -38,7 +38,9 @@ step's values, ``tap`` around the tap, ``padded_frames`` for the padding
 rows every chunk computes, ``pad`` where the loop itself pads on the device
 (the longer stream's last batch cut to the shorter's, or a batch that
 arrived host-only), ``fetch`` where the host waits for a chunk's series,
-and ``pool``.
+and ``pool``. Frames wider than ``FUSED_MAX_WIDTH`` add, inside
+``quality``, ``program_a``, ``vif_scales`` and ``adm`` around the wide
+route's three parts, and count ``wide_chunks``.
 """
 
 from __future__ import annotations
@@ -151,11 +153,15 @@ def chunk_kernels(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=Non
     tensors). Returns (packed (len(CHUNK_KEYS), N) f32, blur carry (H, W))."""
     h, w = ry.shape[-2:]
     if w > FUSED_MAX_WIDTH:
+        count("wide_chunks")
         # The JAX package runs program A through XLA here, not a kernel.
-        pa, blur = program_a(ry, ru, rv, dy, du, dv, prev_blur, has_prev)
+        with span("program_a"):
+            pa, blur = program_a(ry, ru, rv, dy, du, dv, prev_blur, has_prev)
         out = dict(zip(A_KEYS, pa))
-        out.update(vif_features_cuda(ry, dy, egl=vif_egl))
-        out["adm2"] = adm2_kernels(ry, dy, adm_egl)
+        with span("vif_scales"):
+            out.update(vif_features_cuda(ry, dy, egl=vif_egl))
+        with span("adm"):
+            out["adm2"] = adm2_kernels(ry, dy, adm_egl)
         return torch.stack([out[k].float() for k in CHUNK_KEYS]), blur
     fq = quality_fused_cuda(ry, ru, rv, dy, du, dv, prev_blur, egl=vif_egl)
     h2, w2 = ru.shape[-2:]

@@ -989,3 +989,57 @@ def test_chunk_loop_on_the_card_pads_tails_as_the_host_did(dev, merged):
     for key, w in want[0].items():
         np.testing.assert_array_equal(got[0][key], w, err_msg=key)
     assert got[2] == want[2]
+
+
+def test_merged_step_at_dci_4k_matches_the_cpu_plain_path(dev):
+    """The merged step on a 14 x 2160 x 4096 chunk (``chunk_combined``: the
+    wide route, then the accumulator's suite on the dis planes with carried
+    tail frames) on the card against the same inputs through the plain
+    path on the CPU: the 16 quality rows at the wide chunk test's
+    tolerances, the 7 complexity rows at the suite's (motion rel 5e-3,
+    the others 1e-4); four ``vif_scale_cuda`` launches and no
+    ``quality_fused_cuda`` a chunk."""
+    from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
+    from rtvqa_tpu_torch.kernels.vif import vif_scale_cuda
+    from rtvqa_tpu_torch.metrics.complexity_streaming import VALUE_KEYS, ComplexityAccumulator
+    from rtvqa_tpu_torch.metrics.full_reference import CHUNK_KEYS, auto_chunk, chunk_combined
+
+    h, w = 2160, 4096
+    b = auto_chunk(w, h)
+    assert b == 14
+    rng = np.random.default_rng(16)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (3 * xx + 2 * yy) % 256
+    ry = np.stack([np.clip((base + 5 * k) % 256 + rng.integers(0, 8, (h, w)), 0, 255) for k in range(b + 1)])
+    ry = ry.astype(np.uint8)
+    ru, rv = (rng.integers(100, 156, (b + 1, h // 2, w // 2), np.uint8) for _ in range(2))
+    dy, du, dv = (np.clip(a.astype(np.int16) + rng.integers(-4, 5, a.shape), 0, 255).astype(np.uint8)
+                  for a in (ry, ru, rv))
+    prev_blur = (rng.random((h, w)) * 255).astype(np.float32)
+    # Frame 0 is the carried tail (the last dis frame of a chunk before); frames 1..b the chunk.
+    chunk = [torch.from_numpy(np.ascontiguousarray(a[1:])) for a in (ry, ru, rv, dy, du, dv)]
+    tails = [torch.from_numpy(np.ascontiguousarray(a[0])) for a in (dy, du, dv)]
+    blur = torch.from_numpy(prev_blur)
+
+    def step(device, impl):
+        suite = ComplexityAccumulator(64, 64, 0.8, 128, device=device).suite(h, w)
+        out = chunk_combined(*(t.to(device) for t in chunk), blur.to(device), True,
+                             *(t.to(device) for t in tails), suite=suite, impl=impl)
+        return [t.cpu() if t is not None else None for t in out]
+
+    before = quality_fused_cuda.launches, vif_scale_cuda.launches
+    got = step(dev, "kernel")
+    torch.cuda.synchronize()
+    assert (quality_fused_cuda.launches, vif_scale_cuda.launches) == (before[0], before[1] + 4)
+    want = step(torch.device("cpu"), "plain")
+    assert got[0].shape == want[0].shape == (len(CHUNK_KEYS) + len(VALUE_KEYS), b)
+    for i, key in enumerate(CHUNK_KEYS):
+        tol = 1e-6 if key.startswith(("mse", "psnr")) else 3e-4
+        assert _rel(got[0][i], want[0][i]) < tol, key
+    for j, key in enumerate(VALUE_KEYS):
+        tol = 5e-3 if key == "motion" else 1e-4
+        g, p = got[0][len(CHUNK_KEYS) + j].double(), want[0][len(CHUNK_KEYS) + j].double()
+        assert bool(((g - p).abs() <= tol * p.abs().clamp_min(1e-12)).all()), (key, g, p)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-4)  # the blur carry
+    for g, p in zip(got[2:], want[2:]):
+        assert torch.equal(g, p)  # the next chunk's tails: the last dis frame

@@ -454,3 +454,55 @@ def test_active_stages_are_spans_but_not_span_totals():
     assert s["counters"] == {"padded_frames": 2}
     stage_rec, = [r for r in timer.records if r.stage]
     assert [r.parent for r in timer.records if not r.stage] == [stage_rec.id]
+
+
+WIDE_SPANS = {"program_a", "vif_scales", "adm"}
+
+
+def run_kernel_route(width: int, merged: bool, n: int = 6):
+    """One clip of ``n`` 40 x ``width`` frames through ``combined_chunk_loop``
+    on the kernels' route (their plain versions on the CPU) at CHUNK: the
+    tap at interval 2, or the merged step at 1. Returns (series, complexity)."""
+    rng = np.random.default_rng(width)
+    ry = rng.integers(0, 256, (n, 40, width), np.uint8)
+    ru, rv = (rng.integers(0, 256, (n, 20, width // 2), np.uint8) for _ in range(2))
+    dy = np.clip(ry.astype(np.int16) + rng.integers(-6, 7, ry.shape), 0, 255).astype(np.uint8)
+    acc = complexity_streaming.ComplexityAccumulator(32, 32, 0.8, 4, device="cpu")
+    ref_it, dis_it = staged((ry, ru, rv)), staged((dy, ru, rv))
+    try:
+        series, _, comp = full_reference.combined_chunk_loop(
+            ref_it, dis_it, CHUNK, acc, 1 if merged else 2, "dis", None, None, torch.device("cpu"),
+            "kernel", merged)
+    finally:
+        ref_it.close()
+        dis_it.close()
+    return series, comp
+
+
+@pytest.mark.parametrize("width,merged", [(3856, False), (3856, True), (3840, True)])
+def test_the_wide_route_records_its_three_parts_inside_quality(width, merged):
+    """Frames wider than ``FUSED_MAX_WIDTH``: ``program_a``, ``vif_scales``
+    and ``adm`` once a chunk, each a child of that chunk's ``quality``, and
+    ``wide_chunks`` counts the chunks; at 3840 wide none of them. The
+    series are bit-equal with the tracer off and on."""
+    off = run_kernel_route(width, merged)
+    timer = profiler.StageTimer()
+    with timer.active():
+        on = run_kernel_route(width, merged)
+    for k in off[0]:
+        np.testing.assert_array_equal(off[0][k], on[0][k], err_msg=k)
+    assert off[1] == on[1]
+    chunks = 2  # 6 frames at CHUNK 4: a chunk and a padded tail
+    by_id = {r.id: r for r in timer.records}
+    quality = [r for r in timer.records if r.name == "quality"]
+    assert len(quality) == chunks
+    wide = [r for r in timer.records if r.name in WIDE_SPANS]
+    if width <= full_reference.FUSED_MAX_WIDTH:
+        assert wide == [] and "wide_chunks" not in timer.counters
+        return
+    assert timer.counters["wide_chunks"] == chunks
+    for name in WIDE_SPANS:
+        recs = [r for r in wide if r.name == name]
+        assert len(recs) == chunks, name
+        assert {by_id[r.parent].name for r in recs} == {"quality"}, name
+        assert len({r.parent for r in recs}) == chunks, name
