@@ -47,12 +47,13 @@ cannot decode there):
   uploaded (counted at ``io/stream.py::upload``; the merged step's must
   equal the staged pairs': no re-upload) and peak memory of the tap and
   of the merged step;
-* the wide route at DCI 4K (4096x2160, frames wider than 3840): kernel 4
-  (VIF at one scale) against its plain version at each scale of a 14-frame
-  chunk, also on flat quadrants and on letterboxed 2.39:1 scope content,
-  the four-scale chain against the fused quality kernel's and the VIF
-  tail's values on 1080p frames, then the chunk loop over 28 pairs in two
-  chunks on the kernels and on the plain versions;
+* DCI 4K (4096x2160, frames wider than 3840): kernel 4 (VIF at one
+  scale; the API's and the CPU's wide route) against its plain version at
+  each scale of a 14-frame chunk, also on flat quadrants and on
+  letterboxed 2.39:1 scope content, the four-scale chain against the fused
+  quality kernel's and the VIF tail's values on 1080p frames, then the
+  chunk loop over 28 pairs in two chunks on the kernels (the fused route,
+  kernels 3, 5, 6 and 7) and on the plain versions;
 * the measurement path (``trace`` and ``probes``): the quality loop once
   under ``obs/profiler.py::device_trace``, whose exported trace must name
   every ``__global__`` kernel of the route; kernels 6a (ADM scale 0's input
@@ -1286,9 +1287,10 @@ def phase_vif_scale(dev, ref_np, dis_np, ref_1080, dis_1080) -> list[dict]:
     return [rec0, rec_chain]
 
 
-def phase_wide_quality(dev, ref_np, dis_np) -> dict:
-    """The chunk loop over WIDE_N DCI-4K pairs (two chunks) on the kernels,
-    then on the plain versions. Returns the kernel run's launches."""
+def phase_wide_quality(dev, ref_np, dis_np) -> None:
+    """The chunk loop over WIDE_N DCI-4K pairs (two chunks) on the kernels
+    (the fused route, as at every width on the card), then on the plain
+    versions."""
     from rtvqa_tpu_torch.metrics.full_reference import auto_chunk
 
     chunk = auto_chunk(WIDE_W, WIDE_H)
@@ -1300,17 +1302,15 @@ def phase_wide_quality(dev, ref_np, dis_np) -> dict:
     torch.cuda.empty_cache()
     check_quality("wide quality", WIDE_N, s_k, pool_k, s_p, pool_p)
     n_chunks = WIDE_N // chunk
-    check_launches("wide quality", launches,
-                   {"vif_scale_cuda": 4 * n_chunks, "adm_scale_cuda": n_chunks, "adm_tail_cuda": n_chunks},
-                   {"quality_fused_cuda": 0, "vif_tail_cuda": 0,
-                    **{f"vif_scale_cuda[scale{k}]": n_chunks for k in range(4)}})
+    check_launches("wide quality", launches, {}, {
+        "quality_fused_cuda": n_chunks, "vif_tail_cuda": n_chunks, "adm_scale_cuda": n_chunks,
+        "adm_tail_cuda": n_chunks, "vif_scale_cuda": 0})
     mem = peak_gib(lambda: run_loop(dev, ref_np, dis_np, chunk, "kernel"))
     print(f"wide_quality: {WIDE_N}x{WIDE_H}x{WIDE_W} in {n_chunks} chunks of {chunk}: kernel path "
           f"{t_k:.4f} s, plain path {t_p:.4f} s; peak {mem:.2f} GiB (kernel path); launches {launches}; "
           f"psnr {pool_k['psnr']:.6f} ssim {pool_k['ssim']:.6f} vmaf {pool_k['vmaf']:.6f} (plain "
           f"{pool_p['psnr']:.6f} {pool_p['ssim']:.6f} {pool_p['vmaf']:.6f})")
     profile_device("wide quality, kernel path", lambda: run_loop(dev, ref_np, dis_np, chunk, "kernel"), top=12)
-    return launches
 
 
 def phase_trace(dev, ref_np, dis_np, s_alone) -> None:
@@ -1505,12 +1505,13 @@ def feature_peak_bytes(dev, ry, dy, impl: str) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
-def phase_api(dev, ref_np, dis_np, suite_res, series, pooled) -> None:
+def phase_api(dev, ref_np, dis_np, suite_res, series, pooled) -> dict:
     """The JAX package's API on the card at 1080p: the scorer on the suite's
     N frames (kernels 1 and 2), the pairwise pyramid on API_PAIRS pairs
     (kernel 2), ``compute_quality`` on the N pairs, ``extract_features`` /
     ``compute_vmaf`` on API_PAIRS pairs (kernels 4, 6 and 7) and
-    ``orb_features`` on ORB_FRAMES frames against the CPU."""
+    ``orb_features`` on ORB_FRAMES frames against the CPU. Returns the
+    ``extract_features`` kernel run's launches (kernel 4 by scale)."""
     from rtvqa_tpu_torch.io.video import DecodedClip
     from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
     from rtvqa_tpu_torch.kernels.gray import yuv420_to_gray_cuda
@@ -1597,10 +1598,10 @@ def phase_api(dev, ref_np, dis_np, suite_res, series, pooled) -> None:
     chunk = default_chunk(H, W, dev, "kernel")
     extract_features(ref_v, dis_v, device=dev), extract_features(ref_v, dis_v, impl="plain", device=dev)
     kernels = (vif_scale_cuda, adm_scale_cuda, adm_tail_cuda)
-    feats_k, t_k, counts = counted_run(kernels, lambda: extract_features(ref_v, dis_v, device=dev))
+    feats_k, t_k, feature_counts = counted_run(kernels, lambda: extract_features(ref_v, dis_v, device=dev))
     feats_p, t_p = wall_s(lambda: extract_features(ref_v, dis_v, impl="plain", device=dev))
     n_chunks = -(-API_PAIRS // chunk)
-    check_launches("api extract_features", counts, {}, {
+    check_launches("api extract_features", feature_counts, {}, {
         "vif_scale_cuda": 4 * n_chunks, "adm_scale_cuda": n_chunks, "adm_tail_cuda": n_chunks,
         **{f"vif_scale_cuda[scale{k}]": n_chunks for k in range(4)}})
     rels = {}
@@ -1634,7 +1635,7 @@ def phase_api(dev, ref_np, dis_np, suite_res, series, pooled) -> None:
     print(f"api extract_features: {API_PAIRS}x{H}x{W} pairs, default chunk {chunk} ({n_chunks} chunks): kernel "
           f"route {t_k:.4f} s, plain route {t_p:.4f} s; peak {mem['kernel']:.2f} GiB vs {mem['plain']:.2f} GiB "
           f"(budget {budget:.2f} GiB); peak bytes per pixel over a chunk's inputs {json.dumps(per_px)}; max rel "
-          f"vs plain {json.dumps(rels)}; chunk {API_PAIRS // 4} equal; launches {counts}; compute_vmaf "
+          f"vs plain {json.dumps(rels)}; chunk {API_PAIRS // 4} equal; launches {feature_counts}; compute_vmaf "
           f"{score_k!r} in {t_vmaf:.4f} s (plain features {score_p!r}, model {details['model']})")
     profile_device("api extract_features, kernel route", lambda: extract_features(ref_v, dis_v, device=dev))
     profile_device("api extract_features, plain route",
@@ -1655,6 +1656,7 @@ def phase_api(dev, ref_np, dis_np, suite_res, series, pooled) -> None:
     print(f"api orb_features: {tuple(g.shape)}, K {ORB_K}: {int(want['valid'].sum())} valid keypoints; ys, xs, "
           f"valid, fast_score and score equal to the CPU's, angle max abs err {angle_err:.3g}, {bits} of "
           f"{got['desc'].numel()} descriptor bits differ; card {t_orb:.4f} s")
+    return feature_counts
 
 
 def sharded_quality_run(mesh, ref_np, dis_np, chunk: int):
@@ -1903,7 +1905,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe_recs = phase_probes(dev, ref_np[0][first], dis_np[0][first])
     torch.cuda.empty_cache()
-    phase_api(dev, ref_np, dis_np, suite_res, series, pooled)
+    feature_counts = phase_api(dev, ref_np, dis_np, suite_res, series, pooled)
     torch.cuda.empty_cache()
     phase_sharded(dev, ref_np, dis_np, series, pooled, smi)
     torch.cuda.empty_cache()
@@ -1913,10 +1915,10 @@ def main() -> int:
     wide_chunk = slice(0, auto_chunk(WIDE_W, WIDE_H))
     vif_recs = phase_vif_scale(dev, [a[wide_chunk] for a in wide_ref], [a[wide_chunk] for a in wide_dis],
                                [a[first] for a in ref_np], [a[first] for a in dis_np])
+    vif_recs[0]["launches"] = feature_counts["vif_scale_cuda[scale0]"]
+    vif_recs[1]["launches"] = sum(feature_counts[f"vif_scale_cuda[scale{k}]"] for k in (1, 2, 3))
     del y_np, u_np, v_np, ref_np, dis_np
-    launches = phase_wide_quality(dev, wide_ref, wide_dis)
-    vif_recs[0]["launches"] = launches["vif_scale_cuda[scale0]"]
-    vif_recs[1]["launches"] = sum(launches[f"vif_scale_cuda[scale{k}]"] for k in (1, 2, 3))
+    phase_wide_quality(dev, wide_ref, wide_dis)
     print(smi)
     print(json.dumps({"kernels": [gray_rec, motion_rec, *quality_recs, *vif_recs, *probe_recs]}))
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,13 @@ per-frame series of ``CHUNK_KEYS``:
   scales 0-3 and ADM with ``vmaf``); the counterpart of the JAX package's
   ``_program_a`` + ``_program_b``;
 * ``chunk_kernels`` — the CUDA kernels; the counterpart of
-  ``_chunk_fused_tpu``. Up to ``FUSED_MAX_WIDTH`` it runs the fused quality
-  kernel, the VIF tail and ADM (``kernels.quality``, ``kernels.vif``,
-  ``kernels.adm``); wider frames take the JAX package's wide route:
-  ``program_a`` on plain ops, VIF as four ``vif_scale_cuda`` calls, ADM as
-  scale 0 plus the scale chain.
+  ``_chunk_fused_tpu``. On the card, at every width, it runs the fused
+  quality kernel, the VIF tail and ADM (``kernels.quality``,
+  ``kernels.vif``, ``kernels.adm``): the card's kernels tile the frame and
+  have no width limit. CPU frames wider than ``FUSED_MAX_WIDTH`` take the
+  JAX package's wide route, as its TPU gate does: ``program_a`` on plain
+  ops, VIF as four ``vif_scale_cuda`` calls, ADM as scale 0 plus the scale
+  chain (``_fused_route`` decides from the width and the device).
 
 A ragged last chunk is padded by repeating its last frame, on the device
 (the prefetch threads stage it so, ``io/stream.py::stage_to_device``); the
@@ -38,9 +40,10 @@ step's values, ``tap`` around the tap, ``padded_frames`` for the padding
 rows every chunk computes, ``pad`` where the loop itself pads on the device
 (the longer stream's last batch cut to the shorter's, or a batch that
 arrived host-only), ``fetch`` where the host waits for a chunk's series,
-and ``pool``. Frames wider than ``FUSED_MAX_WIDTH`` add, inside
-``quality``, ``program_a``, ``vif_scales`` and ``adm`` around the wide
-route's three parts, and count ``wide_chunks``.
+and ``pool``. Chunks wider than ``FUSED_MAX_WIDTH`` count ``wide_chunks``
+on either route, and ``fused_wide_chunks`` on the fused one; the wide route
+adds, inside ``quality``, ``program_a``, ``vif_scales`` and ``adm`` around
+its three parts.
 """
 
 from __future__ import annotations
@@ -85,8 +88,9 @@ A_KEYS = (
 )
 B_KEYS = ("vif_scale0", "vif_scale1", "vif_scale2", "vif_scale3", "adm2")
 CHUNK_KEYS = A_KEYS + B_KEYS
-# Widest frame the fused quality kernel takes; wider frames take the
-# per-scale route, as in the JAX package (full_reference.py:165-174).
+# Widest frame the JAX package's fused TPU kernel takes (its
+# full_reference.py:165-174); wider CPU frames take the per-scale route as
+# it does. The card's kernels take every width.
 FUSED_MAX_WIDTH = 3840
 
 
@@ -148,21 +152,17 @@ def adm2_kernels(ry, dy, egl=None):
     return adm_finalize(num + tail["num"], den + tail["den"], ry.shape)
 
 
-def chunk_kernels(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=None, adm_egl=None):
-    """One lockstep chunk on the kernels (their plain versions for CPU
-    tensors). Returns (packed (len(CHUNK_KEYS), N) f32, blur carry (H, W))."""
+def _fused_route(w: int, device: torch.device) -> bool:
+    """Whether a chunk of frames ``w`` wide on ``device`` takes the fused
+    kernels (3, 5, 6, 7): always on the card, up to ``FUSED_MAX_WIDTH`` on
+    the CPU."""
+    return w <= FUSED_MAX_WIDTH or device.type == "cuda"
+
+
+def _chunk_fused(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=None, adm_egl=None):
+    """The fused route: kernel 3 (PSNR/SSIM sums, motion SAD, VIF scale 0,
+    the scale-1 inputs), kernel 5 (VIF scales 1-3) and ADM kernels 6-7."""
     h, w = ry.shape[-2:]
-    if w > FUSED_MAX_WIDTH:
-        count("wide_chunks")
-        # The JAX package runs program A through XLA here, not a kernel.
-        with span("program_a"):
-            pa, blur = program_a(ry, ru, rv, dy, du, dv, prev_blur, has_prev)
-        out = dict(zip(A_KEYS, pa))
-        with span("vif_scales"):
-            out.update(vif_features_cuda(ry, dy, egl=vif_egl))
-        with span("adm"):
-            out["adm2"] = adm2_kernels(ry, dy, adm_egl)
-        return torch.stack([out[k].float() for k in CHUNK_KEYS]), blur
     fq = quality_fused_cuda(ry, ru, rv, dy, du, dv, prev_blur, egl=vif_egl)
     h2, w2 = ru.shape[-2:]
     n_y, n_c = h * w, h2 * w2
@@ -176,6 +176,34 @@ def chunk_kernels(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=Non
     out.update(vif_tail_cuda(fq["dec_ref"], fq["dec_dis"], egl=vif_egl))
     out["adm2"] = adm2_kernels(ry, dy, adm_egl)
     return torch.stack([out[k].float() for k in CHUNK_KEYS]), fq["blur_carry"]
+
+
+def _chunk_wide(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=None, adm_egl=None):
+    """The JAX package's wide route: program A on plain ops (XLA there, not
+    a kernel), VIF through kernel 4 at four scales, ADM kernels 6-7."""
+    with span("program_a"):
+        pa, blur = program_a(ry, ru, rv, dy, du, dv, prev_blur, has_prev)
+    out = dict(zip(A_KEYS, pa))
+    with span("vif_scales"):
+        out.update(vif_features_cuda(ry, dy, egl=vif_egl))
+    with span("adm"):
+        out["adm2"] = adm2_kernels(ry, dy, adm_egl)
+    return torch.stack([out[k].float() for k in CHUNK_KEYS]), blur
+
+
+def chunk_kernels(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=None, adm_egl=None):
+    """One lockstep chunk on the kernels (their plain versions for CPU
+    tensors): the fused route on the card at every width and on the CPU up
+    to ``FUSED_MAX_WIDTH``, the wide route for wider CPU frames. Returns
+    (packed (len(CHUNK_KEYS), N) f32, blur carry (H, W))."""
+    w = ry.shape[-1]
+    fused = _fused_route(w, ry.device)
+    if w > FUSED_MAX_WIDTH:
+        count("wide_chunks")
+        if fused:
+            count("fused_wide_chunks")
+    body = _chunk_fused if fused else _chunk_wide
+    return body(ry, ru, rv, dy, du, dv, prev_blur, has_prev, vif_egl, adm_egl)
 
 
 def chunk_combined(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, tail_y, tail_u, tail_v,

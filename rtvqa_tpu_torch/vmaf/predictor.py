@@ -12,8 +12,9 @@ Two routes compute the spatial features of a chunk (``impl``):
   JAX package computes them;
 * "kernel": the kernels that compute them at any width, fed with the u8
   luma as ``metrics/full_reference.py::chunk_kernels`` feeds them on its
-  wide route: VIF as four chained ``vif_scale_cuda`` calls (scales 0-3) and
-  ADM as ``adm_scale_cuda`` (scale 0) then ``adm_tail_cuda`` (scales 1-3).
+  wide route (CPU frames wider than 3840): VIF as four chained
+  ``vif_scale_cuda`` calls (scales 0-3) and ADM as ``adm_scale_cuda``
+  (scale 0) then ``adm_tail_cuda`` (scales 1-3).
 
 ``None`` takes "kernel" on the card and "plain" on the CPU.
 """

@@ -7,8 +7,10 @@
 * the streaming chunk loop over an encoded clip pair, three chunks with a
   ragged tail, against the JAX engine, and against one single chunk (the
   blur carry across chunk boundaries);
-* the wide route (w > 3840: plain program A, VIF through kernel 4's
-  wrapper, ADM through the scale chain) against ``chunk_plain``;
+* the route by width and device (the card fused at every width, the CPU
+  past 3840 on the wide route: plain program A, VIF through kernel 4's
+  wrapper, ADM through the scale chain), both routes at 3856 wide
+  against ``chunk_plain``;
 * the combined engine (``analyze_combined``) and the streaming complexity
   accumulator against the JAX package's on an encoded 64x96 clip; the
   merged step (``merged=True``) against the JAX package's merged program
@@ -97,9 +99,9 @@ def test_chunk_kernel_body_matches_jax_fused(rng, shape, has_prev, egl):
 
 
 def test_chunk_kernels_refuse_wide_frames(rng, monkeypatch):
-    """Frames wider than 3840 no longer raise: they take the wide route
-    (plain program A, ``vif_features_cuda``, ADM scale 0 + chain), never the
-    fused kernel, and equal ``chunk_plain``."""
+    """CPU frames wider than 3840 take the JAX package's wide route (plain
+    program A, ``vif_features_cuda``, ADM scale 0 + chain), never the fused
+    kernel, and equal ``chunk_plain``."""
     calls = []
     real_vif = tfr.vif_features_cuda
     monkeypatch.setattr(tfr, "vif_features_cuda", lambda *a, **k: calls.append(1) or real_vif(*a, **k))
@@ -113,6 +115,27 @@ def test_chunk_kernels_refuse_wide_frames(rng, monkeypatch):
     want, blur_p = tfr.chunk_plain(*map(t, planes), t(prev_blur), True)
     assert calls == [1]
     check_packed(got.numpy(), want.numpy(), 1e-5)
+    assert torch.equal(blur, blur_p)
+
+
+@pytest.mark.parametrize("w,device,fused", [
+    (3840, "cpu", True), (3856, "cpu", False), (3840, "cuda", True), (3856, "cuda", True)])
+def test_fused_route_by_width_and_device(w, device, fused):
+    """The card takes the fused kernels at every width; the CPU only up to
+    ``FUSED_MAX_WIDTH``, past which it mirrors the JAX package's wide route."""
+    assert tfr._fused_route(w, torch.device(device)) is fused
+
+
+def test_fused_body_on_wide_cpu_frames_matches_plain(rng):
+    """The fused route at 40 x 3856 (the card's route there) on the kernels'
+    plain versions equals ``chunk_plain`` at the card's wide-chunk test's
+    tolerances: MSE/PSNR rel 1e-6, the rest rel 3e-4, the blur carry equal."""
+    planes, prev_blur = chunk_inputs(rng, 3, 40, 3856)
+    got, blur = tfr._chunk_fused(*map(t, planes), t(prev_blur), True)
+    want, blur_p = tfr.chunk_plain(*map(t, planes), t(prev_blur), True)
+    for i, key in enumerate(tfr.CHUNK_KEYS):
+        tol = 1e-6 if key.startswith(("mse", "psnr")) else 3e-4
+        assert rel_err(got[i].numpy(), want[i].numpy()) < tol, key
     assert torch.equal(blur, blur_p)
 
 

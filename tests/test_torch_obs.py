@@ -500,9 +500,29 @@ def test_the_wide_route_records_its_three_parts_inside_quality(width, merged):
     if width <= full_reference.FUSED_MAX_WIDTH:
         assert wide == [] and "wide_chunks" not in timer.counters
         return
-    assert timer.counters["wide_chunks"] == chunks
+    assert timer.counters["wide_chunks"] == chunks and "fused_wide_chunks" not in timer.counters
     for name in WIDE_SPANS:
         recs = [r for r in wide if r.name == name]
         assert len(recs) == chunks, name
         assert {by_id[r.parent].name for r in recs} == {"quality"}, name
         assert len({r.parent for r in recs}) == chunks, name
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_a_card_routed_wide_chunk_counts_and_records_no_wide_spans(merged, monkeypatch):
+    """A chunk wider than ``FUSED_MAX_WIDTH`` routed as on the card (the
+    route predicate forced, the kernels' plain versions on the CPU) counts
+    ``wide_chunks`` and ``fused_wide_chunks`` once each and opens none of
+    the wide route's spans; its series equal the CPU wide route's."""
+    wide = run_kernel_route(3856, merged)
+    monkeypatch.setattr(full_reference, "_fused_route", lambda w, device: True)
+    timer = profiler.StageTimer()
+    with timer.active():
+        fused = run_kernel_route(3856, merged)
+    chunks = 2
+    assert timer.counters["wide_chunks"] == timer.counters["fused_wide_chunks"] == chunks
+    assert [r for r in timer.records if r.name in WIDE_SPANS] == []
+    assert len([r for r in timer.records if r.name == "quality"]) == chunks
+    for k in wide[0]:
+        rtol = 1e-6 if k.startswith(("mse", "psnr", "ssim")) else 3e-4
+        np.testing.assert_allclose(fused[0][k], wide[0][k], rtol=rtol, atol=1e-6, err_msg=k)
