@@ -48,7 +48,7 @@ cannot decode there):
   equal the staged pairs': no re-upload) and peak memory of the tap and
   of the merged step;
 * DCI 4K (4096x2160, frames wider than 3840): kernel 4 (VIF at one
-  scale; the API's and the CPU's wide route) against its plain version at
+  scale; the VMAF API's VIF route) against its plain version at
   each scale of a 14-frame chunk, also on flat quadrants and on
   letterboxed 2.39:1 scope content, the four-scale chain against the fused
   quality kernel's and the VIF tail's values on 1080p frames, then the

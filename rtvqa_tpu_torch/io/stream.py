@@ -23,7 +23,7 @@ import ctypes
 import dataclasses
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -181,14 +181,13 @@ class StagedFrameBatch:
 
     ``y/u/v`` are device tensors of ``chunk`` frames for a batch of 1 to
     ``chunk`` frames (a ragged tail's rows beyond its frames repeat its
-    last frame), and ``None`` for a batch passed through host-only.
-    ``host`` always carries the decoded numpy planes, unpadded.
+    last frame). ``host`` carries the decoded numpy planes, unpadded.
     """
 
     host: FrameBatch
-    y: Optional[torch.Tensor] = None
-    u: Optional[torch.Tensor] = None
-    v: Optional[torch.Tensor] = None
+    y: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
 
 
 def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -229,23 +228,22 @@ def upload_rows(a: np.ndarray, rows: int, device: torch.device) -> torch.Tensor:
 
 
 def stage_to_device(
-    iterator: Iterator[FrameBatch], chunk: Optional[int], device: torch.device
+    iterator: Iterator[FrameBatch], chunk: int, device: torch.device
 ) -> Iterator[StagedFrameBatch]:
     """Wrap a FrameBatch iterator, staging each batch of 1 to ``chunk``
     frames onto ``device`` as planes of ``chunk`` frames, a ragged tail
-    padded there (``upload_rows``), one plane at a time.
+    padded there (``upload_rows``), one plane at a time. A batch of no
+    frames or of more than ``chunk`` raises ``ValueError``.
 
     Meant to run inside ``prefetch``, so the upload and the padding are
     issued on the producer thread: ``prefetch(stage_to_device(
-    VideoStream(...), chunk, dev))``. ``chunk=None`` passes batches through
-    host-only, as it does a batch of more than ``chunk`` frames.
+    VideoStream(...), chunk, dev))``.
     """
     try:
         for fb in iterator:
             n = fb.y.shape[0]
-            if chunk is None or not 0 < n <= chunk:
-                yield StagedFrameBatch(fb)
-                continue
+            if not 0 < n <= chunk:
+                raise ValueError(f"stage_to_device takes batches of 1 to {chunk} frames, got {n}")
             with span("stage"):
                 planes = tuple(upload_rows(a, chunk, device) for a in (fb.y, fb.u, fb.v))
             count("staged_chunks")

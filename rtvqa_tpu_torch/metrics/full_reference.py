@@ -11,13 +11,10 @@ per-frame series of ``CHUNK_KEYS``:
   scales 0-3 and ADM with ``vmaf``); the counterpart of the JAX package's
   ``_program_a`` + ``_program_b``;
 * ``chunk_kernels`` — the CUDA kernels; the counterpart of
-  ``_chunk_fused_tpu``. On the card, at every width, it runs the fused
-  quality kernel, the VIF tail and ADM (``kernels.quality``,
-  ``kernels.vif``, ``kernels.adm``): the card's kernels tile the frame and
-  have no width limit. CPU frames wider than ``FUSED_MAX_WIDTH`` take the
-  JAX package's wide route, as its TPU gate does: ``program_a`` on plain
-  ops, VIF as four ``vif_scale_cuda`` calls, ADM as scale 0 plus the scale
-  chain (``_fused_route`` decides from the width and the device).
+  ``_chunk_fused_tpu``: the fused quality kernel, the VIF tail and ADM
+  (``kernels.quality``, ``kernels.vif``, ``kernels.adm``), their plain
+  versions on CPU tensors. The kernels tile the frame, so one body serves
+  every width, DCI 4K's 4096 included.
 
 A ragged last chunk is padded by repeating its last frame, on the device
 (the prefetch threads stage it so, ``io/stream.py::stage_to_device``); the
@@ -38,12 +35,8 @@ Spans and counters (``obs/profiler.py``): ``clip`` around a clip's loop,
 ``quality`` around each chunk's launches, ``complexity`` around the merged
 step's values, ``tap`` around the tap, ``padded_frames`` for the padding
 rows every chunk computes, ``pad`` where the loop itself pads on the device
-(the longer stream's last batch cut to the shorter's, or a batch that
-arrived host-only), ``fetch`` where the host waits for a chunk's series,
-and ``pool``. Chunks wider than ``FUSED_MAX_WIDTH`` count ``wide_chunks``
-on either route, and ``fused_wide_chunks`` on the fused one; the wide route
-adds, inside ``quality``, ``program_a``, ``vif_scales`` and ``adm`` around
-its three parts.
+(the longer stream's last batch cut to the shorter's), ``fetch`` where the
+host waits for a chunk's series, and ``pool``.
 """
 
 from __future__ import annotations
@@ -60,11 +53,10 @@ from rtvqa_tpu_torch.io.stream import (  # noqa: F401 (upload: callers wrap it u
     repeat_last,
     stage_to_device,
     upload,
-    upload_rows,
 )
 from rtvqa_tpu_torch.kernels.adm import adm_scale_cuda, adm_tail_cuda
 from rtvqa_tpu_torch.kernels.quality import quality_fused_cuda
-from rtvqa_tpu_torch.kernels.vif import vif_features_cuda, vif_tail_cuda
+from rtvqa_tpu_torch.kernels.vif import vif_tail_cuda
 from rtvqa_tpu_torch.metrics.complexity_streaming import ComplexityAccumulator, _chunk_values_body
 from rtvqa_tpu_torch.metrics.quality import (
     pooled_psnr,
@@ -89,8 +81,8 @@ A_KEYS = (
 B_KEYS = ("vif_scale0", "vif_scale1", "vif_scale2", "vif_scale3", "adm2")
 CHUNK_KEYS = A_KEYS + B_KEYS
 # Widest frame the JAX package's fused TPU kernel takes (its
-# full_reference.py:165-174); wider CPU frames take the per-scale route as
-# it does. The card's kernels take every width.
+# full_reference.py:165-174, a VMEM limit). The port has no width gate; the
+# DCI-4K cell's test uses it to show that the cell lies past that gate.
 FUSED_MAX_WIDTH = 3840
 
 
@@ -152,16 +144,11 @@ def adm2_kernels(ry, dy, egl=None):
     return adm_finalize(num + tail["num"], den + tail["den"], ry.shape)
 
 
-def _fused_route(w: int, device: torch.device) -> bool:
-    """Whether a chunk of frames ``w`` wide on ``device`` takes the fused
-    kernels (3, 5, 6, 7): always on the card, up to ``FUSED_MAX_WIDTH`` on
-    the CPU."""
-    return w <= FUSED_MAX_WIDTH or device.type == "cuda"
-
-
-def _chunk_fused(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=None, adm_egl=None):
-    """The fused route: kernel 3 (PSNR/SSIM sums, motion SAD, VIF scale 0,
-    the scale-1 inputs), kernel 5 (VIF scales 1-3) and ADM kernels 6-7."""
+def chunk_kernels(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=None, adm_egl=None):
+    """One lockstep chunk on the kernels (their plain versions for CPU
+    tensors): kernel 3 (PSNR/SSIM sums, motion SAD, VIF scale 0, the
+    scale-1 inputs), kernel 5 (VIF scales 1-3) and ADM kernels 6-7.
+    Returns (packed (len(CHUNK_KEYS), N) f32, blur carry (H, W))."""
     h, w = ry.shape[-2:]
     fq = quality_fused_cuda(ry, ru, rv, dy, du, dv, prev_blur, egl=vif_egl)
     h2, w2 = ru.shape[-2:]
@@ -176,34 +163,6 @@ def _chunk_fused(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=None
     out.update(vif_tail_cuda(fq["dec_ref"], fq["dec_dis"], egl=vif_egl))
     out["adm2"] = adm2_kernels(ry, dy, adm_egl)
     return torch.stack([out[k].float() for k in CHUNK_KEYS]), fq["blur_carry"]
-
-
-def _chunk_wide(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=None, adm_egl=None):
-    """The JAX package's wide route: program A on plain ops (XLA there, not
-    a kernel), VIF through kernel 4 at four scales, ADM kernels 6-7."""
-    with span("program_a"):
-        pa, blur = program_a(ry, ru, rv, dy, du, dv, prev_blur, has_prev)
-    out = dict(zip(A_KEYS, pa))
-    with span("vif_scales"):
-        out.update(vif_features_cuda(ry, dy, egl=vif_egl))
-    with span("adm"):
-        out["adm2"] = adm2_kernels(ry, dy, adm_egl)
-    return torch.stack([out[k].float() for k in CHUNK_KEYS]), blur
-
-
-def chunk_kernels(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, vif_egl=None, adm_egl=None):
-    """One lockstep chunk on the kernels (their plain versions for CPU
-    tensors): the fused route on the card at every width and on the CPU up
-    to ``FUSED_MAX_WIDTH``, the wide route for wider CPU frames. Returns
-    (packed (len(CHUNK_KEYS), N) f32, blur carry (H, W))."""
-    w = ry.shape[-1]
-    fused = _fused_route(w, ry.device)
-    if w > FUSED_MAX_WIDTH:
-        count("wide_chunks")
-        if fused:
-            count("fused_wide_chunks")
-    body = _chunk_fused if fused else _chunk_wide
-    return body(ry, ru, rv, dy, du, dv, prev_blur, has_prev, vif_egl, adm_egl)
 
 
 def chunk_combined(ry, ru, rv, dy, du, dv, prev_blur, has_prev: bool, tail_y, tail_u, tail_v,
@@ -238,20 +197,16 @@ def auto_chunk(width: int, height: int, requested: Optional[int] = None) -> int:
     return max(2, (chunk // 2) * 2)
 
 
-def _device_planes(sb, n: int, chunk: int, device) -> tuple:
-    """The (y, u, v) device planes of ``chunk`` frames of one stream's
-    ``StagedFrameBatch`` whose first ``n`` frames the chunk computes, the
-    rows past them repeating frame ``n - 1``. Staged planes pass as they
-    are, unless the batch holds more than ``n`` frames (the other stream
-    ended first): then they are padded again from row ``n - 1``, in place on
-    the card (a CPU plane may share the caller's host array, so it is
-    copied first). A host-only batch's ``n`` frames are uploaded and padded
-    on the device (``upload_rows``)."""
-    if sb.y is not None and sb.host.y.shape[0] == n:
+def _device_planes(sb, n: int) -> tuple:
+    """The (y, u, v) device planes of one stream's ``StagedFrameBatch``
+    whose first ``n`` frames the chunk computes, the rows past them
+    repeating frame ``n - 1``. Staged planes pass as they are, unless the
+    batch holds more than ``n`` frames (the other stream ended first): then
+    they are padded again from row ``n - 1``, in place on the card (a CPU
+    plane may share the caller's host array, so it is copied first)."""
+    if sb.host.y.shape[0] == n:
         return sb.y, sb.u, sb.v
     with span("pad"):
-        if sb.y is None:
-            return tuple(upload_rows(a[:n], chunk, device) for a in (sb.host.y, sb.host.u, sb.host.v))
         return tuple(repeat_last(p if p.is_cuda else p.clone(), n) for p in (sb.y, sb.u, sb.v))
 
 
@@ -284,9 +239,7 @@ def _quality_chunk_loop(ref_it, dis_it, chunk: int, vif_egl, adm_egl, device, im
             break
         rhost, dhost = rb.host, db.host
         n = min(rhost.y.shape[0], dhost.y.shape[0])
-        if n == 0:
-            break
-        planes = _device_planes(rb, n, chunk, device) + _device_planes(db, n, chunk, device)
+        planes = _device_planes(rb, n) + _device_planes(db, n)
         if n < chunk:
             count("padded_frames", chunk - n)
         if carry_blur is None:

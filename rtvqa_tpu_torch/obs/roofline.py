@@ -178,7 +178,7 @@ def strip_floor_windows(n, h, w, itemsize):
 
 def quality_roofline(h: int, w: int) -> dict:
     """Per-frame bytes and operations of the quality chunk on the card
-    (``metrics/full_reference.py::chunk_kernels``' fused route): the fused
+    (``metrics/full_reference.py::chunk_kernels``): the fused
     kernel reads the u8 y/u/v pair and writes the f32 scale-1 dec pair; the
     VIF tail reads it back; ADM scale 0 reads the u8 luma pair and writes
     the f32 approximation pair; the ADM tail reads it back."""

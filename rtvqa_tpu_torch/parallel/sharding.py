@@ -18,8 +18,8 @@ rank is a process that calls these functions on its own shard (see
   by ``metrics.complexity.smooth_series``, the single-device suite's own
   tail; the results are all-gathered over "clip".
 * ``sharded_quality_chunk_step``: each frame rank runs the quality chunk
-  body (``chunk_kernels``, kernels 3, 5, 6 and 7 on the card at every
-  width, or ``chunk_plain``) on its slice of the chunk, with the left
+  body (``chunk_kernels``, kernels 3, 5, 6 and 7 at every width, or
+  ``chunk_plain``) on its slice of the chunk, with the left
   neighbour's blurred last ref luma as its motion carry; the packed series
   are all-gathered, and the last frame rank's blur carry goes to every rank.
 

@@ -10,11 +10,11 @@ Two routes compute the spatial features of a chunk (``impl``):
 
 * "plain": ``vif_features`` + ``adm_features`` on plain PyTorch ops, as the
   JAX package computes them;
-* "kernel": the kernels that compute them at any width, fed with the u8
-  luma as ``metrics/full_reference.py::chunk_kernels`` feeds them on its
-  wide route (CPU frames wider than 3840): VIF as four chained
-  ``vif_scale_cuda`` calls (scales 0-3) and ADM as ``adm_scale_cuda``
-  (scale 0) then ``adm_tail_cuda`` (scales 1-3).
+* "kernel": the kernels that compute them at any width from the u8 luma:
+  VIF as four chained ``vif_scale_cuda`` calls (scales 0-3, kernel 4, the
+  counterpart of the JAX package's ``vif_scale_pallas``; this API is the
+  port's route to it) and ADM as ``adm_scale_cuda`` (scale 0) then
+  ``adm_tail_cuda`` (scales 1-3).
 
 ``None`` takes "kernel" on the card and "plain" on the CPU.
 """

@@ -7,10 +7,8 @@
 * the streaming chunk loop over an encoded clip pair, three chunks with a
   ragged tail, against the JAX engine, and against one single chunk (the
   blur carry across chunk boundaries);
-* the route by width and device (the card fused at every width, the CPU
-  past 3840 on the wide route: plain program A, VIF through kernel 4's
-  wrapper, ADM through the scale chain), both routes at 3856 wide
-  against ``chunk_plain``;
+* the kernel chunk body at 3840, 3856 and 4096 wide (one body at every
+  width, past the JAX package's TPU gate of 3840) against ``chunk_plain``;
 * the combined engine (``analyze_combined``) and the streaming complexity
   accumulator against the JAX package's on an encoded 64x96 clip; the
   merged step (``merged=True``) against the JAX package's merged program
@@ -98,41 +96,17 @@ def test_chunk_kernel_body_matches_jax_fused(rng, shape, has_prev, egl):
     np.testing.assert_allclose(blur.numpy(), np.asarray(jblur), rtol=1e-5, atol=1e-4)
 
 
-def test_chunk_kernels_refuse_wide_frames(rng, monkeypatch):
-    """CPU frames wider than 3840 take the JAX package's wide route (plain
-    program A, ``vif_features_cuda``, ADM scale 0 + chain), never the fused
-    kernel, and equal ``chunk_plain``."""
-    calls = []
-    real_vif = tfr.vif_features_cuda
-    monkeypatch.setattr(tfr, "vif_features_cuda", lambda *a, **k: calls.append(1) or real_vif(*a, **k))
-
-    def no_fused(*a, **k):
-        raise AssertionError("the fused quality kernel must not run above 3840")
-
-    monkeypatch.setattr(tfr, "quality_fused_cuda", no_fused)
-    planes, prev_blur = chunk_inputs(rng, 2, 18, 3856)
-    got, blur = tfr.chunk_kernels(*map(t, planes), t(prev_blur), True)
-    want, blur_p = tfr.chunk_plain(*map(t, planes), t(prev_blur), True)
-    assert calls == [1]
-    check_packed(got.numpy(), want.numpy(), 1e-5)
-    assert torch.equal(blur, blur_p)
-
-
-@pytest.mark.parametrize("w,device,fused", [
-    (3840, "cpu", True), (3856, "cpu", False), (3840, "cuda", True), (3856, "cuda", True)])
-def test_fused_route_by_width_and_device(w, device, fused):
-    """The card takes the fused kernels at every width; the CPU only up to
-    ``FUSED_MAX_WIDTH``, past which it mirrors the JAX package's wide route."""
-    assert tfr._fused_route(w, torch.device(device)) is fused
-
-
-def test_fused_body_on_wide_cpu_frames_matches_plain(rng):
-    """The fused route at 40 x 3856 (the card's route there) on the kernels'
-    plain versions equals ``chunk_plain`` at the card's wide-chunk test's
-    tolerances: MSE/PSNR rel 1e-6, the rest rel 3e-4, the blur carry equal."""
-    planes, prev_blur = chunk_inputs(rng, 3, 40, 3856)
-    got, blur = tfr._chunk_fused(*map(t, planes), t(prev_blur), True)
-    want, blur_p = tfr.chunk_plain(*map(t, planes), t(prev_blur), True)
+@pytest.mark.parametrize("has_prev", [True, False])
+@pytest.mark.parametrize("w", [3840, 3856, 4096])
+def test_fused_body_on_wide_cpu_frames_matches_plain(rng, w, has_prev):
+    """``chunk_kernels`` on the kernels' plain versions equals
+    ``chunk_plain`` at 40 x 3840 (the JAX package's TPU width gate), 40 x
+    3856 (the card's wide-chunk test's shape) and 40 x 4096 (DCI 4K), at
+    the card's wide-chunk test's tolerances: MSE/PSNR rel 1e-6, the rest
+    rel 3e-4, the blur carry equal."""
+    planes, prev_blur = chunk_inputs(rng, 3, 40, w)
+    got, blur = tfr.chunk_kernels(*map(t, planes), t(prev_blur), has_prev)
+    want, blur_p = tfr.chunk_plain(*map(t, planes), t(prev_blur), has_prev)
     for i, key in enumerate(tfr.CHUNK_KEYS):
         tol = 1e-6 if key.startswith(("mse", "psnr")) else 3e-4
         assert rel_err(got[i].numpy(), want[i].numpy()) < tol, key

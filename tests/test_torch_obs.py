@@ -161,12 +161,6 @@ def host_padded(side, chunk=CHUNK):
                                             for a in (fb.y, fb.u, fb.v)))
 
 
-def host_only(side, chunk=CHUNK):
-    """The side's frame batches staged with ``chunk=None``: host-only."""
-    return stream.prefetch(stream.stage_to_device(frame_batches(side, chunk), None, torch.device("cpu")),
-                           depth=1)
-
-
 def run_clip(n: int, merged: bool, stage=staged):
     """One clip of ``n`` frames through ``run_pair``."""
     return run_pair(*planes(n), merged, stage)
@@ -240,24 +234,12 @@ def test_tails_padded_on_the_device_equal_tails_padded_on_the_host(n, merged):
     assert_bit_equal(run_clip(n, merged, host_padded), run_clip(n, merged))
 
 
-@pytest.mark.parametrize("merged", [False, True])
-def test_host_only_batches_are_uploaded_and_padded_by_the_loop(merged):
-    """Batches staged with ``chunk=None`` reach the loop host-only: it
-    uploads their frames and pads on the device, in ``pad``, to the same
-    results."""
-    timer = profiler.StageTimer()
-    with timer.active():
-        got = run_clip(11, merged, host_only)
-    assert_bit_equal(run_clip(11, merged), got)
-    assert timer.span_totals()["pad"]["calls"] == 2 * 3 and "stage" not in timer.span_totals()
-    assert "staged_chunks" not in timer.counters and timer.counters["padded_frames"] == 1
-
-
-@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("n", [1, 3, CHUNK])
 def test_a_staged_ragged_batch_is_its_frames_then_its_last_repeated(n):
     """Each of the six planes of a staged ragged batch (ref and dis) holds
     the batch's frames then copies of its last, byte for byte, in a
-    ``CHUNK``-frame plane; only the frames crossed to the device."""
+    ``CHUNK``-frame plane; only the frames crossed to the device. A full
+    batch crosses as it is and counts no ``staged_tails``."""
     frame = H * W + 2 * (H // 2) * (W // 2)
     timer = profiler.StageTimer()
     with timer.active():
@@ -269,8 +251,27 @@ def test_a_staged_ragged_batch_is_its_frames_then_its_last_repeated(n):
             want = np.concatenate([a, np.repeat(a[-1:], CHUNK - n, 0)])
             assert p.dtype == torch.uint8 and tuple(p.shape) == want.shape
             assert p.numpy().tobytes() == want.tobytes()
-    assert timer.counters == {"staged_chunks": 2, "staged_tails": 2, "h2d_bytes": 2 * n * frame, "h2d_copies": 6}
+    tails = {"staged_tails": 2} if n < CHUNK else {}
+    assert timer.counters == {"staged_chunks": 2, **tails, "h2d_bytes": 2 * n * frame, "h2d_copies": 6}
     assert timer.span_totals()["stage"]["calls"] == 2
+
+
+def test_stage_to_device_refuses_a_batch_longer_than_chunk():
+    """A batch of more than ``chunk`` frames, or of none, is the caller's
+    fault: ``ValueError`` before anything is uploaded or counted, also
+    through ``prefetch`` to its consumer."""
+    side = planes(CHUNK + 1)[0]
+    empty = stream.FrameBatch(*(a[:0] for a in side), np.zeros(0), 0)
+    timer = profiler.StageTimer()
+    with timer.active():
+        with pytest.raises(ValueError, match=f"1 to {CHUNK} frames, got {CHUNK + 1}"):
+            next(stream.stage_to_device(frame_batches(side, CHUNK + 1), CHUNK, torch.device("cpu")))
+        with pytest.raises(ValueError, match="got 0"):
+            next(stream.stage_to_device(iter([empty]), CHUNK, torch.device("cpu")))
+        with pytest.raises(ValueError, match=f"got {CHUNK + 1}"):
+            list(stream.prefetch(stream.stage_to_device(frame_batches(side, CHUNK + 1), CHUNK,
+                                                        torch.device("cpu"))))
+    assert timer.counters == {} and "stage" not in timer.span_totals()
 
 
 @pytest.mark.parametrize("merged", [False, True])
@@ -456,9 +457,6 @@ def test_active_stages_are_spans_but_not_span_totals():
     assert [r.parent for r in timer.records if not r.stage] == [stage_rec.id]
 
 
-WIDE_SPANS = {"program_a", "vif_scales", "adm"}
-
-
 def run_kernel_route(width: int, merged: bool, n: int = 6):
     """One clip of ``n`` 40 x ``width`` frames through ``combined_chunk_loop``
     on the kernels' route (their plain versions on the CPU) at CHUNK: the
@@ -480,11 +478,12 @@ def run_kernel_route(width: int, merged: bool, n: int = 6):
 
 
 @pytest.mark.parametrize("width,merged", [(3856, False), (3856, True), (3840, True)])
-def test_the_wide_route_records_its_three_parts_inside_quality(width, merged):
-    """Frames wider than ``FUSED_MAX_WIDTH``: ``program_a``, ``vif_scales``
-    and ``adm`` once a chunk, each a child of that chunk's ``quality``, and
-    ``wide_chunks`` counts the chunks; at 3840 wide none of them. The
-    series are bit-equal with the tracer off and on."""
+def test_quality_is_the_only_span_inside_a_chunk_at_every_width(width, merged):
+    """On either side of ``FUSED_MAX_WIDTH`` (the JAX package's TPU width
+    gate) the kernels' body opens no span of its own: each chunk's
+    ``quality`` has no child, and nothing is counted beyond staging,
+    padding and the suite's build. The series are bit-equal with the
+    tracer off and on."""
     off = run_kernel_route(width, merged)
     timer = profiler.StageTimer()
     with timer.active():
@@ -492,37 +491,8 @@ def test_the_wide_route_records_its_three_parts_inside_quality(width, merged):
     for k in off[0]:
         np.testing.assert_array_equal(off[0][k], on[0][k], err_msg=k)
     assert off[1] == on[1]
-    chunks = 2  # 6 frames at CHUNK 4: a chunk and a padded tail
-    by_id = {r.id: r for r in timer.records}
-    quality = [r for r in timer.records if r.name == "quality"]
-    assert len(quality) == chunks
-    wide = [r for r in timer.records if r.name in WIDE_SPANS]
-    if width <= full_reference.FUSED_MAX_WIDTH:
-        assert wide == [] and "wide_chunks" not in timer.counters
-        return
-    assert timer.counters["wide_chunks"] == chunks and "fused_wide_chunks" not in timer.counters
-    for name in WIDE_SPANS:
-        recs = [r for r in wide if r.name == name]
-        assert len(recs) == chunks, name
-        assert {by_id[r.parent].name for r in recs} == {"quality"}, name
-        assert len({r.parent for r in recs}) == chunks, name
-
-
-@pytest.mark.parametrize("merged", [False, True])
-def test_a_card_routed_wide_chunk_counts_and_records_no_wide_spans(merged, monkeypatch):
-    """A chunk wider than ``FUSED_MAX_WIDTH`` routed as on the card (the
-    route predicate forced, the kernels' plain versions on the CPU) counts
-    ``wide_chunks`` and ``fused_wide_chunks`` once each and opens none of
-    the wide route's spans; its series equal the CPU wide route's."""
-    wide = run_kernel_route(3856, merged)
-    monkeypatch.setattr(full_reference, "_fused_route", lambda w, device: True)
-    timer = profiler.StageTimer()
-    with timer.active():
-        fused = run_kernel_route(3856, merged)
-    chunks = 2
-    assert timer.counters["wide_chunks"] == timer.counters["fused_wide_chunks"] == chunks
-    assert [r for r in timer.records if r.name in WIDE_SPANS] == []
-    assert len([r for r in timer.records if r.name == "quality"]) == chunks
-    for k in wide[0]:
-        rtol = 1e-6 if k.startswith(("mse", "psnr", "ssim")) else 3e-4
-        np.testing.assert_allclose(fused[0][k], wide[0][k], rtol=rtol, atol=1e-6, err_msg=k)
+    quality = {r.id for r in timer.records if r.name == "quality"}
+    assert len(quality) == 2  # 6 frames at CHUNK 4: a chunk and a padded tail
+    assert [r for r in timer.records if r.parent in quality] == []
+    assert set(timer.counters) == {"staged_chunks", "staged_tails", "h2d_bytes", "h2d_copies", "padded_frames",
+                                   "suite_builds"}

@@ -1,12 +1,14 @@
-"""The wide route (frames wider than ``FUSED_MAX_WIDTH``) through the merged
-step, on the CPU, against the benchmark's plain reference.
+"""Frames wider than ``FUSED_MAX_WIDTH`` (the JAX package's TPU width gate)
+through the fused kernel body in the merged step, on the CPU, against the
+benchmark's plain reference.
 
 ``combined_chunk_loop(..., impl="kernel", merged=True)`` with CPU tensors
-takes ``chunk_kernels``' wide branch on the plain versions of kernel 4 and
-of ADM: 10 frames of 40x3856 at chunk 4 (two chunks and a 2-frame tail
-padded on the device, the blur carried across chunks). The answer is held
-to ``benchmark/reference`` as ``benchmark/harness/check.py`` holds a run's,
-at the limits of the DCI-4K cell.
+runs ``chunk_kernels`` on the plain versions of kernels 3, 5, 6 and 7: 10
+frames of 40x3856 and of 40x4096 (the DCI-4K cell's width) at chunk 4 (two
+chunks and a 2-frame tail padded on the device, the blur carried across
+chunks). The answer is held to ``benchmark/reference`` as
+``benchmark/harness/check.py`` holds a run's, at the limits of the DCI-4K
+cell.
 """
 
 import dataclasses
@@ -24,18 +26,17 @@ if str(ROOT) not in sys.path:
 from benchmark.harness import check, entry, frames, traffic  # noqa: E402
 from rtvqa_tpu_torch.io import stream  # noqa: E402
 from rtvqa_tpu_torch.metrics import complexity_streaming, full_reference  # noqa: E402
-from rtvqa_tpu_torch.obs import profiler  # noqa: E402
 
 BENCH = ROOT / "benchmark"
 CELL = "dci4k_every_frame.longform"
-N, CHUNK, H, W = 10, 4, 40, 3856
+N, CHUNK, H = 10, 4, 40
 CPU = torch.device("cpu")
 
 
-def cell_files():
-    """The cell's configuration at 40x3856 with a pool of N pairs, its mix and its limits."""
+def cell_files(width: int):
+    """The cell's configuration at 40 x ``width`` with a pool of N pairs, its mix and its limits."""
     cfg = json.loads((BENCH / "configs" / "dci4k_every_frame.json").read_text())
-    cfg.update(width=W, height=H, frame_pool_pairs=N)
+    cfg.update(width=width, height=H, frame_pool_pairs=N)
     mix = json.loads((BENCH / "traffic" / "longform.json").read_text())
     limits = json.loads((BENCH / "limits" / f"{CELL}.json").read_text())
     return cfg, mix, limits
@@ -63,19 +64,17 @@ def run_wide_clip(pool, cfg):
 
 
 @pytest.mark.parametrize("seed", [2**31 + 7, 1618033988])
-def test_wide_route_in_the_merged_step_matches_the_reference(seed, monkeypatch):
-    cfg, mix, limits = cell_files()
+@pytest.mark.parametrize("width", [3856, 4096])
+def test_fused_body_in_the_merged_step_matches_the_reference(width, seed, monkeypatch):
+    cfg, mix, limits = cell_files(width)
+    assert cfg["width"] > full_reference.FUSED_MAX_WIDTH
     pool = frames.make_pool(cfg, mix, seed, CPU)
     assert full_reference.resolve_merged(True, cfg["analysis"]["frame_interval"], CPU)
-
-    def never(*args, **kwargs):
-        raise AssertionError("quality_fused_cuda called on a frame wider than FUSED_MAX_WIDTH")
-
-    monkeypatch.setattr(full_reference, "quality_fused_cuda", never)
-    timer = profiler.StageTimer()
-    with timer.active():
-        answer = run_wide_clip(pool, cfg)
-    assert timer.counters["wide_chunks"] == -(-N // CHUNK) == 3
+    calls = []
+    real = full_reference.quality_fused_cuda
+    monkeypatch.setattr(full_reference, "quality_fused_cuda", lambda *a, **k: calls.append(1) or real(*a, **k))
+    answer = run_wide_clip(pool, cfg)
+    assert len(calls) == -(-N // CHUNK) == 3
     assert answer.n_frames == N and all(len(v) == N for v in answer.series.values())
 
     verdict = check.run_check(pool, [answer], cfg, limits, seed, CPU, CHUNK)
